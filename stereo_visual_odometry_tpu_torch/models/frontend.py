@@ -1,0 +1,275 @@
+"""Frame-to-frame stereo VO frontend: the LK pipeline.
+
+Port of ``stereo_visual_odometry_tpu/models/frontend.py`` (LK mode, the main
+path). The per-frame step — 2x pyramids, plane-sweep disparity prior, 4-way
+circular LK on K1, closed-form triangulation, RANSAC-PnP, the gates and pose
+composition, then fresh FAST detection — runs as eager tensor ops on the
+frontend's device, with no host synchronisation inside the step.
+
+State is a dict of tensors: ``pyr_l``/``pyr_r`` (tuples of levels), ``kp``,
+``kp_valid``, ``T_wc``, ``T_21_prev``, ``dmap``, ``status``,
+``n_detected``. RANSAC draws come from the frontend's ``torch.Generator``
+(JAX carries a PRNG key in the state instead); ``step_fn`` also takes the
+draws ``u`` directly.
+
+Branches the main path does not take raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops import fast, lk, pnp, pyramid, se3, select, stereo_sweep, triangulate
+from ..ops.camera import StereoRig
+
+
+@dataclasses.dataclass(frozen=True)
+class VOConfig:
+    """Static pipeline configuration: the same fields and defaults as the
+    JAX ``VOConfig`` (a test holds them equal)."""
+
+    mode: str = "lk"
+    height: int = 384
+    width: int = 1248
+    max_features: int = 1024
+    # FAST / detection
+    fast_threshold: float = 20.0
+    cell: int = 32
+    k_per_cell: int = 8
+    # LK
+    lk_win: int = 21
+    lk_levels: int = 3
+    lk_iters: int = 30
+    pyr_levels: int = 4
+    feature_match_error: float = 2.0
+    cycle_error: float = 2.0
+    # ORB
+    orb_levels: int = 8
+    orb_scale: float = 1.2
+    orb_ini_th: float = 20.0
+    orb_min_th: float = 7.0
+    orb_dist_floor: float = 50.0
+    orb_dist_ratio: float = 2.0
+    orb_mutual: bool = False
+    orb_dedup_radius: float = 0.0
+    orb_max_level_diff: int | None = 1
+    orb_stereo_premask: bool = True
+    orb_max_disparity: float = 128.0
+    orb_temporal_radius: float | None = 150.0
+    orb_upright: bool = True
+    # Triangulation depth gate
+    z_min: float = 0.5
+    z_max: float = 200.0
+    # RANSAC-PnP; inlier_px None = 0.5 px for LK, 2.0 px for ORB.
+    num_hypotheses: int = 256
+    inlier_px: float | None = None
+    refine_iters: int = 6
+
+    @property
+    def inlier_px_resolved(self) -> float:
+        if self.inlier_px is not None:
+            return self.inlier_px
+        return 0.5 if self.mode == "lk" else 2.0
+    # Quality gates
+    min_features_detect: int = 30
+    min_features_track: int = 10
+    min_inlier_rate: float = 0.05
+    min_move: float = 0.0005
+    max_move: float = 10.0
+    max_euler: float = 0.1
+    # Persistent track slots
+    persistent_tracks: bool = False
+    replenish_min_dist: float = 8.0
+    # LK backend / kernel (the port runs the dense kernel path only)
+    lk_backend: str = "auto"
+    lk_kernel: str = "dense"
+    lk_predictive: bool = True
+    disp_cell: int = 64
+    lk_sweep: bool = True
+    lk_sweep_d_max: int = 48
+    lk_stereo_levels: int = 1
+    lk_temporal_levels: int = 2
+    lk_rounds_prior: int = 4
+    lk_rounds_coarse: int = 8
+    lk_rounds_refine: int = 2
+
+
+# Tracking status values (``tracking.h:22-27``).
+INITING, TRACKING_GOOD, LOST = 0, 1, 2
+
+
+# Branches of the JAX frontend that later slices port (ROADMAP.md, Queue 1).
+_SLICE_ORB = "slice 2 (ORB with K2)"
+_SLICE_BA = "slice 3 (BA backend and persistent tracks)"
+_SLICE_ALT_LK = "slice 6 (K3/K4 and the other LK paths)"
+
+
+def check_supported(cfg: VOConfig, backend_cfg=None) -> None:
+    """Raise NotImplementedError for a branch this slice does not port."""
+    if cfg.mode not in ("lk", "orb"):
+        raise ValueError(f"unknown mode {cfg.mode!r} (expected 'lk' or 'orb')")
+    todo = (
+        ("mode='orb'", cfg.mode == "orb", _SLICE_ORB),
+        ("persistent_tracks=True", cfg.persistent_tracks, _SLICE_BA),
+        ("the BA backend", backend_cfg is not None, _SLICE_BA),
+        (f"lk_kernel={cfg.lk_kernel!r}", cfg.lk_kernel != "dense", _SLICE_ALT_LK),
+        ("lk_backend='xla'", cfg.lk_backend == "xla", _SLICE_ALT_LK),
+        ("lk_sweep=False", not cfg.lk_sweep, _SLICE_ALT_LK),
+        ("lk_predictive=False", not cfg.lk_predictive, _SLICE_ALT_LK),
+    )
+    for name, hit, item in todo:
+        if hit:
+            raise NotImplementedError(
+                f"{name} is not ported yet: ROADMAP.md Queue 1, {item}")
+
+
+def _detect_left(cfg: VOConfig, img_l: torch.Tensor):
+    """Dense FAST + spatially-uniform top-K + subpixel on the left image."""
+    score = fast.detect(img_l, cfg.fast_threshold)
+    xy, _, valid = select.grid_top_k(score, cfg.max_features, cell=cfg.cell,
+                                     k_per_cell=cfg.k_per_cell)
+    return select.subpixel_refine(score, xy, valid), valid
+
+
+def _make_tri(rig: StereoRig):
+    """Pick the triangulation routine once, from the concrete rig."""
+    if triangulate.is_rectified(rig):
+        return lambda a, b: triangulate.stereo_depth_closed_form(rig, a, b)
+    return lambda a, b: triangulate.triangulate_dlt(rig.P_left, rig.P_right, a, b)
+
+
+def make_lk_frontend(cfg: VOConfig, rig: StereoRig, device=None,
+                     generator: torch.Generator | None = None):
+    """Build (init_fn, step_fn) for the LK pipeline on ``device``.
+
+    ``init_fn(img_l, img_r) -> state``;
+    ``step_fn(state, img_l, img_r, u=None) -> (state, metrics)`` where ``u``
+    optionally injects the (num_hypotheses, 6) RANSAC draws.
+    """
+    check_supported(cfg)
+    device = torch.device(device) if device is not None else rig.T_rl.device
+    tri = _make_tri(rig)
+    eye4 = lambda: torch.eye(4, dtype=torch.float32, device=device)
+    sweep_level = min(2, cfg.pyr_levels - 1)
+
+    def _as_img(img) -> torch.Tensor:
+        return torch.as_tensor(img, device=device).to(torch.float32)
+
+    def _build_pyrs(img_l, img_r):
+        return (tuple(pyramid.build_pyramid(img_l, cfg.pyr_levels)),
+                tuple(pyramid.build_pyramid(img_r, cfg.pyr_levels)))
+
+    def init_fn(img_l, img_r):
+        """StereoInit_f2f (``tracking.cpp:78-92``): detect on frame 0."""
+        img_l, img_r = _as_img(img_l), _as_img(img_r)
+        pl, pr = _build_pyrs(img_l, img_r)
+        xy, valid = _detect_left(cfg, img_l)
+        n_det = torch.sum(valid)
+        status = torch.where(n_det >= cfg.min_features_detect,
+                             TRACKING_GOOD, INITING).to(torch.int32)
+        return {
+            "pyr_l": pl, "pyr_r": pr, "kp": xy, "kp_valid": valid,
+            "T_wc": eye4(), "T_21_prev": eye4(),
+            "status": status, "n_detected": n_det,
+            # The next step's t1-pair disparity map.
+            "dmap": stereo_sweep.disparity_sweep(
+                pl[sweep_level], pr[sweep_level], d_max=cfg.lk_sweep_d_max),
+        }
+
+    def step_fn(state, img_l, img_r, u: torch.Tensor | None = None):
+        img_l, img_r = _as_img(img_l), _as_img(img_r)
+        pyr_cur_l, pyr_cur_r = _build_pyrs(img_l, img_r)
+
+        # 4-way circular LK t1L -> t1R -> t2R -> t2L (tracking.cpp:583-622).
+        quad = lk.circular_track(
+            (state["pyr_l"], state["pyr_r"], pyr_cur_r, pyr_cur_l),
+            state["kp"], state["kp_valid"], rig, state["T_21_prev"], state["dmap"],
+            feature_match_error=cfg.feature_match_error,
+            cycle_error=cfg.cycle_error, win=cfg.lk_win, iters=cfg.lk_iters,
+            sweep_d_max=cfg.lk_sweep_d_max, stereo_levels=cfg.lk_stereo_levels,
+            temporal_levels=cfg.lk_temporal_levels,
+            rounds_prior=cfg.lk_rounds_prior, rounds_refine=cfg.lk_rounds_refine)
+
+        # Triangulate the t-1 stereo pair (tracking.cpp:292-294).
+        pts3d, tri_ok = tri(quad["t1l"], quad["t1r"])
+        depth_ok = (pts3d[:, 2] > cfg.z_min) & (pts3d[:, 2] < cfg.z_max)
+        corr_valid = quad["valid"] & tri_ok & depth_ok
+        n_tracked = torch.sum(corr_valid)
+
+        # RANSAC-PnP of the t-1 cloud vs current-left pixels (tracking.cpp:299).
+        res = pnp.ransac_pnp(rig.left, pts3d, quad["t2l"], corr_valid,
+                             num_hypotheses=cfg.num_hypotheses,
+                             inlier_px=cfg.inlier_px_resolved,
+                             refine_iters=cfg.refine_iters,
+                             T_init=state["T_21_prev"], u=u, generator=generator)
+        T_21 = res["T"]
+
+        # Gates (tracking.cpp:305-329 with config bounds).
+        t_norm = torch.linalg.vector_norm(T_21[:3, 3])
+        eulers = torch.abs(se3.euler_zyx(T_21[:3, :3]))
+        accept = ((n_tracked >= cfg.min_features_track) & res["ok"] &
+                  (res["inlier_ratio"] >= cfg.min_inlier_rate) &
+                  (t_norm > cfg.min_move) & (t_norm < cfg.max_move) &
+                  torch.all(eulers < cfg.max_euler))
+
+        # Pose composition: frame_pose_ *= T^{-1} (tracking.cpp:313-318).
+        T_wc = torch.where(accept, state["T_wc"] @ se3.se3_inv(T_21), state["T_wc"])
+
+        # Fresh detection on the current left image (tracking.cpp:260).
+        xy, det_valid = _detect_left(cfg, img_l)
+        n_det = torch.sum(det_valid)
+        status = torch.where(n_det >= cfg.min_features_detect,
+                             TRACKING_GOOD, LOST).to(torch.int32)
+
+        # Constant-velocity motion model for the next frame (identity after
+        # a rejected frame).
+        new_state = {
+            "pyr_l": pyr_cur_l, "pyr_r": pyr_cur_r,
+            "kp": xy, "kp_valid": det_valid,
+            "T_wc": T_wc, "T_21_prev": torch.where(accept, T_21, eye4()),
+            "status": status, "n_detected": n_det, "dmap": quad["dmap"],
+        }
+        metrics = {
+            "T_21": T_21, "accept": accept, "n_tracked": n_tracked,
+            "n_detected": n_det, "n_inliers": res["num_inliers"],
+            "inlier_ratio": res["inlier_ratio"], "t_norm": t_norm,
+            "tracked_prev": quad["t1l"], "tracked_cur": quad["t2l"],
+            "tracked_valid": corr_valid,
+        }
+        return new_state, metrics
+
+    return init_fn, step_fn
+
+
+def make_frontend(cfg: VOConfig, rig: StereoRig, device=None,
+                  generator: torch.Generator | None = None):
+    """Dispatch on ``cfg.mode``: LK is the ported mode (ORB raises)."""
+    return make_lk_frontend(cfg, rig, device=device, generator=generator)
+
+
+CHUNK_KEEP = ("T_21", "accept", "n_tracked", "n_inliers", "inlier_ratio",
+              "t_norm", "n_detected")
+
+
+def make_chunked_frontend(cfg: VOConfig, rig: StereoRig, device=None,
+                          generator: torch.Generator | None = None):
+    """(init_fn, chunk_fn): advance a whole frame chunk per call.
+
+    ``chunk_fn(state, imgs_l (T, H, W), imgs_r (T, H, W))`` runs the step
+    over the chunk and returns (state, metrics with a leading T axis): the
+    ``CHUNK_KEEP`` metrics plus ``T_wc`` after each frame, as the JAX scan.
+    """
+    init_fn, step_fn = make_frontend(cfg, rig, device=device, generator=generator)
+
+    def chunk_fn(state, imgs_l, imgs_r):
+        out = {k: [] for k in CHUNK_KEEP + ("T_wc",)}
+        for il, ir in zip(imgs_l, imgs_r):
+            state, m = step_fn(state, il, ir)
+            for k in CHUNK_KEEP:
+                out[k].append(m[k])
+            out["T_wc"].append(state["T_wc"])
+        return state, {k: torch.stack(v) for k, v in out.items()}
+
+    return init_fn, chunk_fn

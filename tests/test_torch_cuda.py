@@ -1,0 +1,87 @@
+"""Card-only tests of the port: K1's CUDA kernel against its plain version, and
+the LK slice on cuda against the same slice on the CPU.
+
+Marked ``cuda``; each skips without a GPU (decided inside the test). This
+file imports neither JAX nor the JAX package, so it runs on a machine with
+a card and no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: K1 exact (a copy). The slice: accept flags equal and poses within
+1e-3 m / 1e-4, with the same RANSAC draws fed to both devices — the GPU
+sums in another order than the CPU (TF32 is off), nothing else differs.
+"""
+import numpy as np
+import pytest
+import torch
+
+from stereo_visual_odometry_tpu_torch.models.frontend import VOConfig
+from stereo_visual_odometry_tpu_torch.models.system import System
+from stereo_visual_odometry_tpu_torch.ops import patch
+from stereo_visual_odometry_tpu_torch.ops import pnp as tpnp
+from stereo_visual_odometry_tpu_torch.utils import synthetic
+from stereo_visual_odometry_tpu_torch.utils.config import CameraConfig, RunConfig
+
+pytestmark = pytest.mark.cuda
+
+
+def need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+
+
+@pytest.mark.parametrize("hp,wp,S", [(408, 1408, 24), (408, 1408, 22),
+                                     (216, 768, 24), (216, 768, 22),
+                                     (384, 1280, 3), (64, 64, 64)])
+def test_k1_kernel_matches_reference(hp, wp, S):
+    need_cuda()
+    rng = np.random.default_rng(S)
+    img = torch.from_numpy((rng.random((hp, wp)) * 255).astype(np.float32)).cuda()
+    corners = np.stack([rng.integers(0, hp - S + 1, 1024),
+                        rng.integers(0, wp - S + 1, 1024)], -1).astype(np.int32)
+    corners[:8] = [[-5, 3], [hp, wp], [2, -9], [hp - S + 3, 0],
+                   [0, wp + 40], [-1, -1], [hp - S, wp - S], [0, 0]]
+    c = torch.from_numpy(corners).cuda()
+    before = patch.extract_windows_int.launches
+    got = patch.extract_windows_int(img, c, S)
+    torch.cuda.synchronize()
+    assert patch.extract_windows_int.launches == before + 1
+    torch.testing.assert_close(got, patch.extract_windows_int_reference(img, c, S),
+                               rtol=0, atol=0)
+    empty = patch.extract_windows_int(img, c[:0], S)
+    assert empty.shape == (0, S, S)
+
+
+def test_k1_rejects_mixed_devices():
+    need_cuda()
+    with pytest.raises(ValueError):
+        patch.extract_windows_int(torch.zeros(32, 32, device="cuda"),
+                                  torch.zeros(4, 2, dtype=torch.int32), 4)
+
+
+def test_slice_on_cuda_matches_cpu(monkeypatch):
+    need_cuda()
+    seq = synthetic.render_sequence(n_frames=8, h=192, w=256, fx=300.0)
+    rp = seq["rig"]
+    cfg = RunConfig(camera=CameraConfig(fx=rp["fx"], fy=rp["fy"], cx=rp["cx"],
+                                        cy=rp["cy"], baseline=rp["baseline"]),
+                    vo=VOConfig(height=192, width=256, max_features=256,
+                                num_hypotheses=128, min_features_track=8,
+                                min_inlier_rate=0.3))
+    draws = np.random.default_rng(0).random((7, 128, 6)).astype(np.float32)
+    orig = tpnp.ransac_pnp
+    frames = list(zip(seq["images_l"], seq["images_r"]))
+    runs = {}
+    for device in ("cpu", "cuda"):
+        queue = [torch.from_numpy(u).to(device) for u in draws]
+        monkeypatch.setattr(tpnp, "ransac_pnp",
+                            lambda *a, u=None, **kw: orig(*a, u=queue.pop(0), **kw))
+        patch.extract_windows_int.launches = 0
+        sys_ = System(cfg, device=device)
+        runs[device] = (sys_, sys_.run_chunked(frames, chunk=4),
+                        patch.extract_windows_int.launches)
+    (s_c, t_c, n_c), (s_g, t_g, n_g) = runs["cpu"], runs["cuda"]
+    assert n_c == 0 and n_g == 1 + 27 * 7
+    assert [m["accept"] for m in s_g.metrics] == [m["accept"] for m in s_c.metrics]
+    np.testing.assert_allclose(t_g[:, :3, 3], t_c[:, :3, 3], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(t_g[:, :3, :3], t_c[:, :3, :3], atol=1e-4, rtol=0)

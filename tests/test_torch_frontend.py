@@ -1,0 +1,140 @@
+"""Port frontend: config and data parity, import hygiene, unported branches,
+and one LK step from a JAX state carried across by ``state_from_jax``.
+
+The JAX frontend runs its dense LK path (``lk_backend='pallas'``) with the
+window kernel patched to Pallas interpret mode; the JAX CPU default would
+run another tracker. Both packages step from the same state with the same
+RANSAC draws. Tolerances: ``accept`` equal; T_21 translation within 1e-3 m
+and rotation within 1e-4; n_tracked within 2% (float32 sums in another
+order can flip an LK gate that sits on its threshold).
+"""
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from stereo_visual_odometry_tpu.models import frontend as jfront
+from stereo_visual_odometry_tpu.ops import camera as jcam
+from stereo_visual_odometry_tpu.ops import patch_pallas
+from stereo_visual_odometry_tpu.utils import synthetic as jsyn
+from stereo_visual_odometry_tpu_torch.models import frontend as tfront
+from stereo_visual_odometry_tpu_torch.models.system import System
+from stereo_visual_odometry_tpu_torch.utils import bridge
+from stereo_visual_odometry_tpu_torch.utils import synthetic as tsyn
+from stereo_visual_odometry_tpu_torch.utils.config import CameraConfig, RunConfig
+
+REPO = Path(__file__).resolve().parent.parent
+H, W, FX = 192, 256, 300.0
+SMALL = dict(height=H, width=W, max_features=256, num_hypotheses=128,
+             min_features_track=8, min_inlier_rate=0.3)
+
+
+def test_voconfig_fields_and_defaults_match_jax():
+    def spec(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+    assert spec(tfront.VOConfig) == spec(jfront.VOConfig)
+    for mode in ("lk", "orb"):
+        assert (tfront.VOConfig(mode=mode).inlier_px_resolved
+                == jfront.VOConfig(mode=mode).inlier_px_resolved)
+
+
+@pytest.mark.parametrize("kw", [dict(n_frames=3, h=64, w=96, seed=4),
+                                dict(n_frames=2, h=80, w=120, seed=1, flicker=0.25,
+                                     dropout=0.3, yaw_rate=0.02)])
+def test_render_sequence_equals_jax(kw):
+    a, b = tsyn.render_sequence(**kw), jsyn.render_sequence(**kw)
+    assert a.keys() == b.keys() and a["rig"] == b["rig"]
+    for k in ("images_l", "images_r", "poses_gt"):
+        assert a[k].dtype == b[k].dtype
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_import_without_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import stereo_visual_odometry_tpu_torch\n"
+        "import stereo_visual_odometry_tpu_torch.models.system\n"
+        "import stereo_visual_odometry_tpu_torch.utils.bridge\n"
+        "assert not any(m == 'stereo_visual_odometry_tpu' or\n"
+        "               m.startswith('stereo_visual_odometry_tpu.') for m in sys.modules)\n"
+        "import torch\n"
+        "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
+        "assert torch.backends.cudnn.allow_tf32 is False\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("kw", [dict(mode="orb"), dict(lk_kernel="cell"),
+                                dict(lk_kernel="v1"), dict(lk_backend="xla"),
+                                dict(lk_sweep=False), dict(persistent_tracks=True)])
+def test_unported_branches_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        System(RunConfig(vo=tfront.VOConfig(**kw)))
+
+
+def test_ba_backend_raises_and_unknown_mode_rejected():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        System(RunConfig(), backend_cfg=object())
+    with pytest.raises(ValueError):
+        tfront.check_supported(tfront.VOConfig(mode="sift"))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))  # the suite runs several workers at once
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    orig = patch_pallas.extract_windows_int
+    monkeypatch.setattr(
+        patch_pallas, "extract_windows_int",
+        lambda img, corners, S, interpret=False: orig(img, corners, S, interpret=True))
+
+
+def test_one_step_from_jax_state(pallas_interpret):
+    seq = tsyn.render_sequence(n_frames=3, h=H, w=W, fx=FX, speed=1.0)
+    rp = seq["rig"]
+    jrig = jcam.StereoRig.kitti(fx=FX, fy=FX, cx=rp["cx"], cy=rp["cy"],
+                                baseline=rp["baseline"])
+    trig = bridge.rig_from_numpy(
+        [float(v) for v in (jrig.left.fx, jrig.left.fy, jrig.left.cx, jrig.left.cy)],
+        [float(v) for v in (jrig.right.fx, jrig.right.fy, jrig.right.cx, jrig.right.cy)],
+        np.asarray(jrig.T_rl))
+    jcfg = jfront.VOConfig(lk_backend="pallas", **SMALL)
+    j_init, j_step = jfront.make_lk_frontend(jcfg, jrig)
+    _, t_step = tfront.make_lk_frontend(tfront.VOConfig(**SMALL), trig, device="cpu")
+    il, ir = seq["images_l"], seq["images_r"]
+    state = j_init(jnp.asarray(il[0]), jnp.asarray(ir[0]), jax.random.PRNGKey(0))
+    state, _ = j_step(state, jnp.asarray(il[1]), jnp.asarray(ir[1]))  # motion prior
+    state_np = jax.tree_util.tree_map(np.asarray, state)
+    _, sub = jax.random.split(state["key"])
+    u = np.array(jax.random.uniform(sub, (jcfg.num_hypotheses, 6)))  # the step's draws
+
+    s_j, m_j = j_step(state, jnp.asarray(il[2]), jnp.asarray(ir[2]))
+    s_t, m_t = t_step(bridge.state_from_jax(state_np), il[2], ir[2],
+                      u=torch.from_numpy(u))
+
+    assert bool(m_j["accept"]) and bool(m_t["accept"])
+    T_j, T_t = np.asarray(m_j["T_21"]), m_t["T_21"].numpy()
+    np.testing.assert_allclose(T_t[:3, 3], T_j[:3, 3], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(T_t[:3, :3], T_j[:3, :3], atol=1e-4, rtol=0)
+    n_j, n_t = int(m_j["n_tracked"]), int(m_t["n_tracked"])
+    assert abs(n_t - n_j) <= 0.02 * n_j, (n_t, n_j)
+    # The next state: same detections (exact ops) and same pose chain.
+    np.testing.assert_array_equal(s_t["kp_valid"].numpy(), np.asarray(s_j["kp_valid"]))
+    np.testing.assert_allclose(s_t["kp"].numpy(), np.asarray(s_j["kp"]), atol=1e-6)
+    np.testing.assert_allclose(s_t["T_wc"].numpy(), np.asarray(s_j["T_wc"]), atol=1e-3)
+    assert int(s_t["status"]) == int(s_j["status"])
