@@ -5,8 +5,8 @@ which stays as it is). It mirrors the JAX layout and names, so each
 function's counterpart is found by name:
 
   ops/     batched geometry + vision ops on tensors; ``patch.py`` holds the
-           hand-written CUDA window-extraction kernel's wrapper
-  models/  the LK frontend step and the ``System`` runtime
+           wrappers of the hand-written CUDA patch kernels (K1, K2)
+  models/  the LK and ORB frontend steps and the ``System`` runtime
   utils/   config, synthetic sequences, trajectory metrics, JAX-state bridge
   csrc/    CUDA C++ sources, built with nvcc at first use
 

@@ -6,9 +6,12 @@ offline-throughput loop over frame chunks. The tracking state machine
 (INITING / TRACKING_GOOD / LOST) runs on the host with LOST->reinit after a
 few feature-starved frames, preserving the pose chain.
 
-The port takes an explicit ``device``; RANSAC draws come from a
-``torch.Generator`` on that device seeded from ``RunConfig.seed``. The
-overlay dump and the BA backend are later slices and raise.
+``System`` runs on the card (``device="cuda"``) unless the caller asks for
+the CPU with ``device="cpu"``; without a GPU, the default raises. The
+frontend is chosen by ``VOConfig.mode`` (LK or ORB); its state is opaque
+here. RANSAC draws come from a ``torch.Generator`` on the device seeded from
+``RunConfig.seed``. The overlay dump and the BA backend are later slices and
+raise.
 """
 from __future__ import annotations
 
@@ -32,16 +35,21 @@ def _to_host(tree: dict) -> dict:
 
 
 class System:
-    """End-to-end VO runtime around the LK frontend."""
+    """End-to-end VO runtime around the LK or ORB frontend."""
 
-    def __init__(self, config: RunConfig, device="cpu", backend_cfg=None):
+    def __init__(self, config: RunConfig, device="cuda", backend_cfg=None):
         frontend_mod.check_supported(config.vo, backend_cfg)
         if config.overlay_dir:
             raise NotImplementedError(
                 "overlay_dir is not ported yet: ROADMAP.md Queue 1, slice 5 "
                 "(the CLI, online feed and checkpoint)")
-        self.config = config
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"System(device={device!r}) needs an NVIDIA GPU and "
+                "torch.cuda.is_available() is False; pass device='cpu' to run "
+                "on the CPU")
+        self.config = config
         self.rig = rig_from_config(config.camera, device=self.device)
         self.vo_cfg = config.vo
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)

@@ -1,2 +1,3 @@
-from . import (camera, fast, linalg_small, lk, lk_dense, patch, pnp, pyramid,
-               se3, select, stereo_sweep, triangulate)  # noqa: F401
+from . import (camera, fast, interp, linalg_small, lk, lk_dense, match, orb,
+               orb_pattern, patch, pnp, pyramid, se3, select, stereo_sweep,
+               triangulate)  # noqa: F401

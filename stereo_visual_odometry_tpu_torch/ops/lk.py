@@ -11,20 +11,13 @@ padded extents, and a smaller pad would track border points differently.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from . import lk_dense, se3, stereo_sweep
+from .patch import pad_edge
 
 # Max flow change per level beyond the incoming guess (px).
 SEARCH_RADIUS_COARSEST = 20
 SEARCH_RADIUS_REFINE = 6
-
-
-def _edge_pad(img: torch.Tensor, top: int, bottom: int, left: int,
-              right: int) -> torch.Tensor:
-    if not (top or bottom or left or right):
-        return img
-    return F.pad(img[None, None], (left, right, top, bottom), mode="replicate")[0, 0]
 
 
 def track(pyr_prev, pyr_next, pts: torch.Tensor, win: int = 21, levels: int = 3,
@@ -58,12 +51,12 @@ def track(pyr_prev, pyr_next, pts: torch.Tensor, win: int = 21, levels: int = 3,
         # Levels smaller than the correlation window are edge-padded first.
         ph = max(win + 2 - ip.shape[0], 0)
         pw = max(win + 2 - ip.shape[1], 0)
-        ip = _edge_pad(ip, 0, ph, 0, pw)
-        inx = _edge_pad(inx, 0, ph, 0, pw)
+        ip = pad_edge(ip, 0, ph, 0, pw)
+        inx = pad_edge(inx, 0, ph, 0, pw)
         eh = (-(ip.shape[0] + 2 * pad)) % 8
         ew = (-(ip.shape[1] + 2 * pad)) % 128
-        ipp = _edge_pad(ip, pad, pad + eh, pad, pad + ew).contiguous()
-        inxp = _edge_pad(inx, pad, pad + eh, pad, pad + ew).contiguous()
+        ipp = pad_edge(ip, pad, pad + eh, pad, pad + ew).contiguous()
+        inxp = pad_edge(inx, pad, pad + eh, pad, pad + ew).contiguous()
         rnds = rounds_coarse if lvl == n_levels - 1 else rounds_refine
         flow, ok = lk_dense.level_track_dense(
             ipp, inxp, pts_l, flow, win=win, iters=iters, eps=eps_l,

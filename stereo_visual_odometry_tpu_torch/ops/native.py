@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at first use (never at import), into ``_build/`` beside the package
-(listed in ``.gitignore``), and is keyed by a hash of the sources so an
-edited kernel is rebuilt. There is no fallback: a failed build raises.
+Each source is compiled with ``nvcc`` for Hopper (``sm_90a``) into an object,
+all sources at once in parallel, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+first use (never at import), into ``_build/`` beside the package (listed in
+``.gitignore``), and is keyed by a hash of the sources so an edited kernel
+is rebuilt. There is no fallback: a failed build raises.
 """
 from __future__ import annotations
 
@@ -20,7 +21,16 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points of csrc/: name -> argtypes (all return a cudaError_t as int).
+_SIGNATURES = {
+    # img, hp, wp, corners, n, S, out, device, stream
+    "svo_extract_windows_int": [_P, _I, _I, _P, _I, _I, _P, _I, _P],
+    # img, hp, wp, centers, n, P, pad, out, device, stream
+    "svo_extract_patches": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P],
+}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -50,20 +60,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsvo_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands concurrently; raise if any fails. Returns each one's
+    command line and output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        output = proc.communicate()[0]
+        logs.append(" ".join(cmd) + "\n" + output)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{output}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return logs
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    srcs = _sources()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    tmp = out.with_suffix(f".{tag}")
+    log = out.with_suffix(".log")
+    try:
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                         for s, o in zip(srcs, objs)])
+        logs += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        log.write_text("\n".join(logs))
+        os.replace(tmp, out)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return out
 
 
@@ -73,10 +105,9 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
-            fn = handle.svo_extract_windows_int
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _lib = handle
     return _lib

@@ -1,6 +1,6 @@
 """Fixed-shape keypoint selection from dense score maps.
 
-Port of ``grid_top_k`` and ``subpixel_refine`` from
+Port of ``grid_top_k``, ``subpixel_refine`` and ``dedup_by_bin`` from
 ``stereo_visual_odometry_tpu/ops/select.py``. Ties break the JAX way: the
 per-cell rounds keep the first maximal index (``torch.argmax`` does), and
 the global top-K is a stable descending sort, so equal scores keep their
@@ -75,3 +75,32 @@ def subpixel_refine(score: torch.Tensor, xy: torch.Tensor,
     dy = axis_offset(W[:, 0, 1], sc, W[:, 2, 1])
     refined = xy + torch.stack([dx, dy], dim=-1)
     return torch.where(valid[:, None], refined, xy)
+
+
+def dedup_by_bin(xy: torch.Tensor, score: torch.Tensor, valid: torch.Tensor,
+                 height: int, width: int, radius: float = 3.0) -> torch.Tensor:
+    """Suppress near-duplicate keypoints: keep the best-scoring one per
+    ``radius``-px spatial bin, in two half-shifted grids.
+
+    Ranks are unique (a stable ascending sort of the scores, so equal
+    scores rank by slot index, as ``jnp.argsort``); a scatter-max per bin
+    finds each bin's champion, and a slot survives iff it is its own bin's
+    champion in both grids.
+    """
+    k = xy.shape[0]
+    order = torch.sort(torch.where(valid, score, -torch.inf), stable=True).indices
+    rank = torch.empty(k, dtype=torch.int64, device=xy.device)
+    rank[order] = torch.arange(k, device=xy.device)
+    rank = torch.where(valid, rank, -1)
+
+    keep = valid
+    nbx = int(width / radius) + 3
+    nby = int(height / radius) + 3
+    for shift in (0.0, 0.5):
+        bx = torch.clamp(xy[:, 0] / radius + shift, 0, nbx - 1).to(torch.int64)
+        by = torch.clamp(xy[:, 1] / radius + shift, 0, nby - 1).to(torch.int64)
+        bid = torch.where(valid, by * nbx + bx, nbx * nby)
+        champ = torch.full((nbx * nby + 1,), -1, dtype=torch.int64, device=xy.device)
+        champ = champ.scatter_reduce(0, bid, rank, reduce="amax")
+        keep = keep & (rank == champ[bid])
+    return keep

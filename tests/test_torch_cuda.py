@@ -1,5 +1,6 @@
-"""Card-only tests of the port: K1's CUDA kernel against its plain version, and
-the LK slice on cuda against the same slice on the CPU.
+"""Card-only tests of the port: the CUDA kernels K1 and K2 against their plain
+versions, and the LK and ORB slices on cuda against the same slices on the
+CPU.
 
 Marked ``cuda``; each skips without a GPU (decided inside the test). This
 file imports neither JAX nor the JAX package, so it runs on a machine with
@@ -7,9 +8,11 @@ a card and no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1 exact (a copy). The slice: accept flags equal and poses within
-1e-3 m / 1e-4, with the same RANSAC draws fed to both devices — the GPU
-sums in another order than the CPU (TF32 is off), nothing else differs.
+Tolerances: K1 exact (a copy). K2 exact (the kernel's __fmul_rn / __fmaf_rn
+are the plain version's products and exactly emulated fmas). The slices:
+accept flags equal and poses within 1e-3 m / 1e-4, with the same RANSAC
+draws fed to both devices — the GPU sums in another order than the CPU
+(TF32 is off), nothing else differs.
 """
 import numpy as np
 import pytest
@@ -59,16 +62,54 @@ def test_k1_rejects_mixed_devices():
                                   torch.zeros(4, 2, dtype=torch.int32), 4)
 
 
-def test_slice_on_cuda_matches_cpu(monkeypatch):
+# The ORB level shapes at 384x1280 (8 levels, scale 1.2) and their budgets
+# at 2048 features.
+ORB_LEVELS = [(384, 1280), (320, 1067), (267, 889), (222, 741), (185, 617),
+              (154, 514), (129, 429), (107, 357)]
+ORB_BUDGETS = [445, 371, 309, 257, 214, 179, 149, 124]
+
+
+def _k2_case(h, w, n, P, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.rand((h, w), generator=g, device="cuda") * 255
+    xy = torch.rand((n, 2), generator=g, device="cuda") * torch.tensor(
+        [w - 1.0, h - 1.0], device="cuda")
+    corners = torch.tensor([[0.0, 0.0], [w - 1.0, h - 1.0], [w - 1.0, 0.0],
+                            [0.0, h - 1.0], [-2.0, -2.0], [w + 1.0, h + 1.0]],
+                           device="cuda")
+    return img, torch.cat([xy, corners[:n]])
+
+
+@pytest.mark.parametrize("level", range(8))
+def test_k2_kernel_matches_reference_at_orb_shapes(level):
     need_cuda()
-    seq = synthetic.render_sequence(n_frames=8, h=192, w=256, fx=300.0)
+    (h, w), n = ORB_LEVELS[level], ORB_BUDGETS[level]
+    for P in (39, 31):
+        img, xy = _k2_case(h, w, n, P, seed=level)
+        before = patch.extract_patches.launches
+        got = patch.extract_patches(img, xy, P)
+        torch.cuda.synchronize()
+        assert patch.extract_patches.launches == before + 1
+        pad = P // 2 + 2
+        want = patch.extract_patches_reference(patch.pad_edge(img, pad, pad, pad, pad),
+                                               xy, P, pad)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    empty = patch.extract_patches(img, xy[:0], 39)
+    assert empty.shape == (0, 39, 39)
+
+
+def test_k2_rejects_mixed_devices():
+    need_cuda()
+    with pytest.raises(ValueError):
+        patch.extract_patches(torch.zeros(64, 64, device="cuda"), torch.zeros(4, 2), 39)
+
+
+def _slice_on_both_devices(monkeypatch, seq, vo, chunk):
     rp = seq["rig"]
     cfg = RunConfig(camera=CameraConfig(fx=rp["fx"], fy=rp["fy"], cx=rp["cx"],
-                                        cy=rp["cy"], baseline=rp["baseline"]),
-                    vo=VOConfig(height=192, width=256, max_features=256,
-                                num_hypotheses=128, min_features_track=8,
-                                min_inlier_rate=0.3))
-    draws = np.random.default_rng(0).random((7, 128, 6)).astype(np.float32)
+                                        cy=rp["cy"], baseline=rp["baseline"]), vo=vo)
+    n = len(seq["images_l"])
+    draws = np.random.default_rng(0).random((n - 1, 128, 6)).astype(np.float32)
     orig = tpnp.ransac_pnp
     frames = list(zip(seq["images_l"], seq["images_r"]))
     runs = {}
@@ -76,12 +117,34 @@ def test_slice_on_cuda_matches_cpu(monkeypatch):
         queue = [torch.from_numpy(u).to(device) for u in draws]
         monkeypatch.setattr(tpnp, "ransac_pnp",
                             lambda *a, u=None, **kw: orig(*a, u=queue.pop(0), **kw))
-        patch.extract_windows_int.launches = 0
+        patch.extract_windows_int.launches = patch.extract_patches.launches = 0
         sys_ = System(cfg, device=device)
-        runs[device] = (sys_, sys_.run_chunked(frames, chunk=4),
-                        patch.extract_windows_int.launches)
-    (s_c, t_c, n_c), (s_g, t_g, n_g) = runs["cpu"], runs["cuda"]
-    assert n_c == 0 and n_g == 1 + 27 * 7
+        traj = sys_.run_chunked(frames, chunk=chunk)
+        runs[device] = (sys_, traj, patch.extract_windows_int.launches,
+                        patch.extract_patches.launches)
+    (s_c, t_c, *n_c), (s_g, t_g, *n_g) = runs["cpu"], runs["cuda"]
+    assert n_c == [0, 0]
     assert [m["accept"] for m in s_g.metrics] == [m["accept"] for m in s_c.metrics]
     np.testing.assert_allclose(t_g[:, :3, 3], t_c[:, :3, 3], atol=1e-3, rtol=0)
     np.testing.assert_allclose(t_g[:, :3, :3], t_c[:, :3, :3], atol=1e-4, rtol=0)
+    return n_g
+
+
+def test_slice_on_cuda_matches_cpu(monkeypatch):
+    need_cuda()
+    seq = synthetic.render_sequence(n_frames=8, h=192, w=256, fx=300.0)
+    vo = VOConfig(height=192, width=256, max_features=256, num_hypotheses=128,
+                  min_features_track=8, min_inlier_rate=0.3)
+    assert _slice_on_both_devices(monkeypatch, seq, vo, chunk=4) == [1 + 27 * 7, 0]
+
+
+def test_orb_slice_on_cuda_matches_cpu(monkeypatch):
+    need_cuda()
+    seq = synthetic.render_sequence(n_frames=8, h=128, w=320, fx=300.0)
+    rng = np.random.default_rng(1)  # sensor noise: no flat regions (test_torch_system.py)
+    for k in ("images_l", "images_r"):
+        seq[k] = (seq[k] + rng.normal(0, 1.0, seq[k].shape)).astype(np.float32)
+    vo = VOConfig(mode="orb", height=128, width=320, max_features=256, orb_levels=4,
+                  num_hypotheses=128, min_features_track=8, min_inlier_rate=0.3)
+    # Per frame (the init included): two images x 4 levels, one K1 and one K2 each.
+    assert _slice_on_both_devices(monkeypatch, seq, vo, chunk=4) == [8 * 8, 8 * 8]

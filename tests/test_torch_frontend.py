@@ -1,12 +1,17 @@
 """Port frontend: config and data parity, import hygiene, unported branches,
-and one LK step from a JAX state carried across by ``state_from_jax``.
+the device default, and one LK step and one ORB step from a JAX state
+carried across by ``state_from_jax``.
 
-The JAX frontend runs its dense LK path (``lk_backend='pallas'``) with the
-window kernel patched to Pallas interpret mode; the JAX CPU default would
-run another tracker. Both packages step from the same state with the same
-RANSAC draws. Tolerances: ``accept`` equal; T_21 translation within 1e-3 m
-and rotation within 1e-4; n_tracked within 2% (float32 sums in another
-order can flip an LK gate that sits on its threshold).
+The JAX LK frontend runs its dense LK path (``lk_backend='pallas'``) with
+the window kernel patched to Pallas interpret mode; the JAX CPU default
+would run another tracker. The JAX ORB frontend runs K1 and K2 in interpret
+mode (``torch_jax_kernels.jax_pallas_kernels``) on the synthetic frames
+plus seeded sensor noise (``torch_jax_kernels.with_sensor_noise``). Both
+packages step from the same state with the same RANSAC draws. Tolerances:
+``accept`` equal; T_21 translation within 1e-3 m and rotation within 1e-4;
+LK n_tracked within 2% (float32 sums in another order can flip an LK gate
+that sits on its threshold); ORB n_tracked and the next state's features
+equal (integer matching on the same descriptors).
 """
 import dataclasses
 import subprocess
@@ -28,6 +33,7 @@ from stereo_visual_odometry_tpu_torch.models.system import System
 from stereo_visual_odometry_tpu_torch.utils import bridge
 from stereo_visual_odometry_tpu_torch.utils import synthetic as tsyn
 from stereo_visual_odometry_tpu_torch.utils.config import CameraConfig, RunConfig
+from torch_jax_kernels import jax_pallas_kernels, with_sensor_noise
 
 REPO = Path(__file__).resolve().parent.parent
 H, W, FX = 192, 256, 300.0
@@ -62,6 +68,8 @@ def test_import_without_jax():
         "import stereo_visual_odometry_tpu_torch\n"
         "import stereo_visual_odometry_tpu_torch.models.system\n"
         "import stereo_visual_odometry_tpu_torch.utils.bridge\n"
+        "from stereo_visual_odometry_tpu_torch.ops import (interp, match, orb,\n"
+        "                                                 orb_pattern, patch)\n"
         "assert not any(m == 'stereo_visual_odometry_tpu' or\n"
         "               m.startswith('stereo_visual_odometry_tpu.') for m in sys.modules)\n"
         "import torch\n"
@@ -73,17 +81,35 @@ def test_import_without_jax():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
-@pytest.mark.parametrize("kw", [dict(mode="orb"), dict(lk_kernel="cell"),
+@pytest.mark.parametrize("kw", [dict(mode="orb", persistent_tracks=True),
+                                dict(lk_kernel="cell"),
                                 dict(lk_kernel="v1"), dict(lk_backend="xla"),
                                 dict(lk_sweep=False), dict(persistent_tracks=True)])
 def test_unported_branches_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System(RunConfig(vo=tfront.VOConfig(**kw)))
+    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+        System(RunConfig(vo=tfront.VOConfig(**kw)), device="cpu")
+    if kw.get("persistent_tracks"):
+        assert "slice 3" in str(err.value)
+
+
+def test_orb_mode_builds_and_ignores_lk_options():
+    cfg = RunConfig(vo=tfront.VOConfig(mode="orb", lk_kernel="cell", lk_sweep=False))
+    assert System(cfg, device="cpu").device.type == "cpu"
+
+
+def test_system_defaults_to_cuda():
+    """No device given: the card, or an error where there is none; never a
+    silent run on the CPU."""
+    if torch.cuda.is_available():
+        assert System(RunConfig()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            System(RunConfig())
 
 
 def test_ba_backend_raises_and_unknown_mode_rejected():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System(RunConfig(), backend_cfg=object())
+        System(RunConfig(), device="cpu", backend_cfg=object())
     with pytest.raises(ValueError):
         tfront.check_supported(tfront.VOConfig(mode="sift"))
 
@@ -137,4 +163,43 @@ def test_one_step_from_jax_state(pallas_interpret):
     np.testing.assert_array_equal(s_t["kp_valid"].numpy(), np.asarray(s_j["kp_valid"]))
     np.testing.assert_allclose(s_t["kp"].numpy(), np.asarray(s_j["kp"]), atol=1e-6)
     np.testing.assert_allclose(s_t["T_wc"].numpy(), np.asarray(s_j["T_wc"]), atol=1e-3)
+    assert int(s_t["status"]) == int(s_j["status"])
+
+
+def test_orb_one_step_from_jax_state():
+    h, w = 128, 320
+    seq = tsyn.render_sequence(n_frames=3, h=h, w=w, fx=FX, speed=1.0)
+    il, ir = (with_sensor_noise(seq[k], seed=s) for k, s in
+              (("images_l", 1), ("images_r", 2)))
+    rp = seq["rig"]
+    jrig = jcam.StereoRig.kitti(fx=FX, fy=FX, cx=rp["cx"], cy=rp["cy"],
+                                baseline=rp["baseline"])
+    trig = bridge.rig_from_numpy([FX, FX, rp["cx"], rp["cy"]], [FX, FX, rp["cx"], rp["cy"]],
+                                 np.asarray(jrig.T_rl))
+    small = dict(SMALL, mode="orb", height=h, width=w, orb_levels=4)
+    jcfg = jfront.VOConfig(**small)
+    _, t_step = tfront.make_frontend(tfront.VOConfig(**small), trig, device="cpu")
+    with jax_pallas_kernels():
+        j_init, j_step = jfront.make_frontend(jcfg, jrig)
+        state = j_init(jnp.asarray(il[0]), jnp.asarray(ir[0]), jax.random.PRNGKey(0))
+        state, _ = j_step(state, jnp.asarray(il[1]), jnp.asarray(ir[1]))  # motion prior
+        state_np = jax.tree_util.tree_map(np.asarray, state)
+        _, sub = jax.random.split(state["key"])
+        u = np.array(jax.random.uniform(sub, (jcfg.num_hypotheses, 6)))
+        s_j, m_j = j_step(state, jnp.asarray(il[2]), jnp.asarray(ir[2]))
+    t_state = bridge.state_from_jax(state_np)
+    assert t_state["feat_l"]["desc"].dtype == torch.int64
+    s_t, m_t = t_step(t_state, il[2], ir[2], u=torch.from_numpy(u))
+
+    assert bool(m_j["accept"]) and bool(m_t["accept"])
+    assert int(m_t["n_tracked"]) == int(m_j["n_tracked"]) >= 20
+    T_j, T_t = np.asarray(m_j["T_21"]), m_t["T_21"].numpy()
+    np.testing.assert_allclose(T_t[:3, 3], T_j[:3, 3], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(T_t[:3, :3], T_j[:3, :3], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(s_t["T_wc"].numpy(), np.asarray(s_j["T_wc"]), atol=1e-3)
+    for side in ("feat_l", "feat_r"):
+        want = bridge.feat_from_jax(jax.tree_util.tree_map(np.asarray, s_j[side]))
+        np.testing.assert_array_equal(s_t[side]["valid"].numpy(), want["valid"].numpy())
+        np.testing.assert_array_equal(s_t[side]["desc"].numpy(), want["desc"].numpy())
+        np.testing.assert_allclose(s_t[side]["xy"].numpy(), want["xy"].numpy(), atol=1e-3)
     assert int(s_t["status"]) == int(s_j["status"])

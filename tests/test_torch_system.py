@@ -1,6 +1,14 @@
-"""The slice as a whole: the port's ``System.run`` / ``run_chunked`` against
-the JAX ``System`` over one synthetic sequence (8 frames, 192x256).
+"""The slices as a whole: the port's ``System.run`` / ``run_chunked`` against
+the JAX ``System`` over one synthetic sequence (8 frames), in LK mode
+(192x256) and in ORB mode (128x320, 4 levels, 256 features).
 
+ORB: the JAX ``System`` runs K1 and K2 in Pallas interpret mode
+(``torch_jax_kernels.jax_pallas_kernels``) on the synthetic frames plus
+seeded sensor noise (``torch_jax_kernels.with_sensor_noise``); with the JAX
+RANSAC draws injected, accept flags are equal and poses within 1e-3 m and
+1e-4 in rotation.
+
+LK:
 The JAX ``System`` runs its dense LK path (``lk_backend='pallas'``) with the
 window kernel patched to Pallas interpret mode (its CPU default would run
 another tracker). Tolerances:
@@ -28,6 +36,7 @@ from stereo_visual_odometry_tpu_torch.models.system import System
 from stereo_visual_odometry_tpu_torch.ops import pnp as tpnp
 from stereo_visual_odometry_tpu_torch.utils import synthetic, trajectory
 from stereo_visual_odometry_tpu_torch.utils.config import CameraConfig, RunConfig
+from torch_jax_kernels import jax_pallas_kernels, with_sensor_noise
 
 SMALL = dict(height=192, width=256, max_features=256, num_hypotheses=128,
              min_features_track=8, min_inlier_rate=0.3)
@@ -63,19 +72,24 @@ def jax_run(seq):
         traj = sys_.run(list(zip(seq["images_l"], seq["images_r"])))
     finally:
         patch_pallas.extract_windows_int = orig
-    # The uniforms each JAX step drew (System: PRNGKey(seed) -> split for
-    # init -> split per step in the frontend, pnp.py:186).
+    return sys_, traj, _jax_draws(len(traj) - 1)
+
+
+def _jax_draws(n_steps):
+    """The uniforms each JAX step drew (System: PRNGKey(seed) -> split for
+    init -> split per step in the frontend, pnp.py:186)."""
     _, k = jax.random.split(jax.random.PRNGKey(0))
     draws = []
-    for _ in range(len(traj) - 1):
+    for _ in range(n_steps):
         k, sub = jax.random.split(k)
         draws.append(np.array(jax.random.uniform(sub, (SMALL["num_hypotheses"], 6))))
-    return sys_, traj, draws
+    return draws
 
 
-def _port(seq, method):
-    sys_ = System(RunConfig(camera=CameraConfig(**_cam(seq)), vo=VOConfig(**SMALL)))
-    frames = list(zip(seq["images_l"], seq["images_r"]))
+def _port(seq, method, vo=None, frames=None):
+    sys_ = System(RunConfig(camera=CameraConfig(**_cam(seq)), vo=vo or VOConfig(**SMALL)),
+                  device="cpu")
+    frames = frames or list(zip(seq["images_l"], seq["images_r"]))
     traj = sys_.run(frames) if method == "run" else sys_.run_chunked(frames, chunk=3)
     return sys_, traj
 
@@ -120,7 +134,7 @@ def test_system_own_draws_close_to_jax(seq, jax_run):
 def test_system_reinit_after_lost(seq, tmp_path):
     cfg = RunConfig(camera=CameraConfig(**_cam(seq)), vo=VOConfig(**SMALL),
                     trajectory_out=str(tmp_path / "traj.txt"))
-    sys_ = System(cfg)
+    sys_ = System(cfg, device="cpu")
     sys_.max_lost_before_reinit = 2
     blank = np.zeros_like(seq["images_l"][0])
     sys_.step(seq["images_l"][0], seq["images_r"][0])
@@ -134,11 +148,12 @@ def test_system_reinit_after_lost(seq, tmp_path):
     traj = sys_.run([])  # writes the trajectory so far
     np.testing.assert_allclose(trajectory.load_kitti(cfg.trajectory_out), traj, atol=1e-6)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System(RunConfig(overlay_dir=str(tmp_path)))
+        System(RunConfig(overlay_dir=str(tmp_path)), device="cpu")
 
 
 def test_run_chunked_reinit_after_lost(seq):
-    sys_ = System(RunConfig(camera=CameraConfig(**_cam(seq)), vo=VOConfig(**SMALL)))
+    sys_ = System(RunConfig(camera=CameraConfig(**_cam(seq)), vo=VOConfig(**SMALL)),
+                  device="cpu")
     blank = np.zeros_like(seq["images_l"][0])
     il, ir = seq["images_l"], seq["images_r"]
     frames = [(il[0], ir[0]), (il[1], ir[1])] + [(blank, blank)] * 3 + \
@@ -150,3 +165,41 @@ def test_run_chunked_reinit_after_lost(seq):
     np.testing.assert_allclose(traj[2:5], np.broadcast_to(traj[1], (3, 4, 4)), atol=1e-5)
     assert [m["accept"] for m in sys_.metrics][-1]
     assert sys_.status == 1
+
+
+ORB_SMALL = dict(SMALL, mode="orb", height=128, width=320, orb_levels=4)
+
+
+@pytest.fixture(scope="module")
+def orb_seq():
+    seq = synthetic.render_sequence(n_frames=8, h=128, w=320, fx=300.0)
+    seq["images_l"] = with_sensor_noise(seq["images_l"], seed=1)
+    seq["images_r"] = with_sensor_noise(seq["images_r"], seed=2)
+    return seq
+
+
+@pytest.fixture(scope="module")
+def jax_orb_run(orb_seq):
+    with jax_pallas_kernels():
+        sys_ = JSystem(JRunConfig(camera=JCamera(**_cam(orb_seq)),
+                                  vo=JVOConfig(**ORB_SMALL)))
+        traj = sys_.run(list(zip(orb_seq["images_l"], orb_seq["images_r"])))
+    return sys_, traj, _jax_draws(len(traj) - 1)
+
+
+@pytest.mark.parametrize("method", ["run", "run_chunked"])
+def test_orb_system_matches_jax_with_same_draws(orb_seq, jax_orb_run, method,
+                                                monkeypatch):
+    j_sys, j_traj, draws = jax_orb_run
+    queue = [torch.from_numpy(u) for u in draws]
+    orig = tpnp.ransac_pnp
+    monkeypatch.setattr(tpnp, "ransac_pnp",
+                        lambda *a, u=None, **kw: orig(*a, u=queue.pop(0), **kw))
+    t_sys, t_traj = _port(orb_seq, method, vo=VOConfig(**ORB_SMALL))
+    assert not queue
+    assert t_traj.shape == j_traj.shape == (8, 4, 4)
+    acc = [m["accept"] for m in t_sys.metrics]
+    assert acc == [m["accept"] for m in j_sys.metrics] and sum(acc) >= 5, acc
+    assert _tracked(t_sys) == _tracked(j_sys)
+    np.testing.assert_allclose(t_traj[:, :3, 3], j_traj[:, :3, 3], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(t_traj[:, :3, :3], j_traj[:, :3, :3], atol=1e-4, rtol=0)
