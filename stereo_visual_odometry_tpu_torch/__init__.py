@@ -5,7 +5,9 @@ which stays as it is). It mirrors the JAX layout and names, so each
 function's counterpart is found by name:
 
   ops/     batched geometry + vision ops on tensors; ``patch.py`` holds the
-           wrappers of the hand-written CUDA patch kernels (K1, K2)
+           wrappers of the hand-written CUDA patch kernels (K1, K2),
+           ``lk_cell.py`` and ``lk_v1.py`` those of the LK level kernels
+           (K3, K4)
   models/  the LK and ORB frontend steps and the ``System`` runtime
   utils/   config, synthetic sequences, trajectory metrics, JAX-state bridge
   csrc/    CUDA C++ sources, built with nvcc at first use

@@ -11,9 +11,12 @@ mid-round freezes until the next round's reload.
 
 Rounds, inner iterations, clipping against the padded extents and the
 convergence gate (a point still active after the last round fails) are the
-JAX ones, matched rather than changed.
+JAX ones, matched rather than changed. ``template_phase`` and ``grad8`` are
+shared with the plain versions of K3 and K4 (``lk_cell``, ``lk_v1``).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +39,64 @@ def _blend4_batch(sub: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor) -> torc
 def _pad8(x: torch.Tensor, off_r: int, off_c: int) -> torch.Tensor:
     """Place (N, win, win) at offset (off_r, off_c) inside (N, win+1, win+1)."""
     return F.pad(x, (off_c, 1 - off_c, off_r, 1 - off_r))
+
+
+def grad8(Ix: torch.Tensor, Iy: torch.Tensor) -> torch.Tensor:
+    """The gradient stack for the 8 bilinear-form dots, (N, (win+1)^2, 8):
+    a (win+1)^2 window dotted with it gives sum(a..d * Ix), sum(a..d * Iy)
+    for its four corner sub-patches a..d."""
+    n, win = Ix.shape[0], Ix.shape[-1]
+    return torch.stack([
+        _pad8(Ix, 0, 0), _pad8(Ix, 0, 1), _pad8(Ix, 1, 0), _pad8(Ix, 1, 1),
+        _pad8(Iy, 0, 0), _pad8(Iy, 0, 1), _pad8(Iy, 1, 0), _pad8(Iy, 1, 1),
+    ], dim=-1).reshape(n, (win + 1) * (win + 1), 8)
+
+
+class Template(NamedTuple):
+    """A level's template side: patch, gradients, gate and inverse normal
+    matrix, and the template dots of the bilinear right-hand side."""
+    T: torch.Tensor
+    Ix: torch.Tensor
+    Iy: torch.Tensor
+    ok: torch.Tensor
+    inv00: torch.Tensor
+    inv01: torch.Tensor
+    inv11: torch.Tensor
+    tIx: torch.Tensor
+    tIy: torch.Tensor
+
+
+def template_phase(img_prev_pad: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
+                   win: int, min_eig: float, windows=None) -> Template:
+    """Template, central-difference gradients and min-eigenvalue gate of N
+    points at padded-level positions (py, px), from one (win+3)^2 window
+    each (read with ``windows``: K1 by default, or its plain version) blended
+    at the point's fraction — the template phase of the JAX kernels."""
+    windows = windows or patch.extract_windows_int
+    hp, wp = img_prev_pad.shape
+    r = (win - 1) // 2
+    tbr = py - r - 1.0
+    tbc = px - r - 1.0
+    tr0 = torch.clamp(torch.floor(tbr).to(torch.int32), 0, hp - win - 3)
+    tc0 = torch.clamp(torch.floor(tbc).to(torch.int32), 0, wp - win - 3)
+    tfy = tbr - tr0.to(torch.float32)
+    tfx = tbc - tc0.to(torch.float32)
+    sub_t = windows(img_prev_pad, torch.stack([tr0, tc0], dim=-1), win + 3)
+    field = _blend4_batch(sub_t, tfy, tfx)              # (N, win+2, win+2)
+    T = field[:, 1:-1, 1:-1]
+    Ix = (field[:, 1:-1, 2:] - field[:, 1:-1, :-2]) * 0.5
+    Iy = (field[:, 2:, 1:-1] - field[:, :-2, 1:-1]) * 0.5
+
+    g00 = torch.sum(Ix * Ix, dim=(1, 2))
+    g01 = torch.sum(Ix * Iy, dim=(1, 2))
+    g11 = torch.sum(Iy * Iy, dim=(1, 2))
+    det = g00 * g11 - g01 * g01
+    trc = g00 + g11
+    mev = (trc - torch.sqrt(torch.clamp(trc * trc - 4 * det, min=0.0))) * 0.5 / (win * win)
+    safe_det = torch.where(torch.abs(det) < 1e-12, 1.0, det)
+    return Template(T, Ix, Iy, mev > min_eig, g11 / safe_det, -g01 / safe_det,
+                    g00 / safe_det, torch.sum(T * Ix, dim=(1, 2)),
+                    torch.sum(T * Iy, dim=(1, 2)))
 
 
 def level_track_dense(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
@@ -63,42 +124,11 @@ def level_track_dense(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
     gy = guess[:, 1].to(f32)
     gx = guess[:, 0].to(f32)
 
-    # ---- template phase ------------------------------------------------- #
-    tbr = py - r - 1.0
-    tbc = px - r - 1.0
-    tr0 = torch.clamp(torch.floor(tbr).to(i32), 0, hp - win - 3)
-    tc0 = torch.clamp(torch.floor(tbc).to(i32), 0, wp - win - 3)
-    tfy = tbr - tr0.to(f32)
-    tfx = tbc - tc0.to(f32)
-    sub_t = patch.extract_windows_int(
-        img_prev_pad, torch.stack([tr0, tc0], dim=-1), win + 3)
-    field = _blend4_batch(sub_t, tfy, tfx)              # (N, win+2, win+2)
-    T = field[:, 1:-1, 1:-1]
-    Ix = (field[:, 1:-1, 2:] - field[:, 1:-1, :-2]) * 0.5
-    Iy = (field[:, 2:, 1:-1] - field[:, :-2, 1:-1]) * 0.5
-
-    g00 = torch.sum(Ix * Ix, dim=(1, 2))
-    g01 = torch.sum(Ix * Iy, dim=(1, 2))
-    g11 = torch.sum(Iy * Iy, dim=(1, 2))
-    det = g00 * g11 - g01 * g01
-    trc = g00 + g11
-    mev = (trc - torch.sqrt(torch.clamp(trc * trc - 4 * det, min=0.0))) * 0.5 / (win * win)
-    ok = mev > min_eig
-    if active is not None:
-        ok = ok & active
-    safe_det = torch.where(torch.abs(det) < 1e-12, 1.0, det)
-    inv00 = g11 / safe_det
-    inv01 = -g01 / safe_det
-    inv11 = g00 / safe_det
-    tIx = torch.sum(T * Ix, dim=(1, 2))
-    tIy = torch.sum(T * Iy, dim=(1, 2))
-
-    # Gradient stack for the 8 bilinear-form dots, (N, F, 8).
+    tpl = template_phase(img_prev_pad, py, px, win, min_eig)
+    ok = tpl.ok if active is None else tpl.ok & active
+    inv00, inv01, inv11, tIx, tIy = tpl.inv00, tpl.inv01, tpl.inv11, tpl.tIx, tpl.tIy
     Fn = (win + 1) * (win + 1)
-    grad8 = torch.stack([
-        _pad8(Ix, 0, 0), _pad8(Ix, 0, 1), _pad8(Ix, 1, 0), _pad8(Ix, 1, 1),
-        _pad8(Iy, 0, 0), _pad8(Iy, 0, 1), _pad8(Iy, 1, 0), _pad8(Iy, 1, 1),
-    ], dim=-1).reshape(n, Fn, 8)
+    grad = grad8(tpl.Ix, tpl.Iy)
 
     act = ok.to(f32)
     vy = torch.zeros_like(py)
@@ -110,7 +140,7 @@ def level_track_dense(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
         ix = torch.clamp(torch.floor(px + gx + vx - r).to(i32), 0, wp - win - 1)
         W = patch.extract_windows_int(img_next_pad, torch.stack([iy, ix], dim=-1),
                                       win + 1)          # (N, S, S)
-        dots = torch.bmm(W.reshape(n, 1, Fn), grad8)[:, 0]  # (N, 8)
+        dots = torch.bmm(W.reshape(n, 1, Fn), grad)[:, 0]  # (N, 8)
         sIxa, sIxb, sIxc, sIxd = dots[:, 0], dots[:, 1], dots[:, 2], dots[:, 3]
         sIya, sIyb, sIyc, sIyd = dots[:, 4], dots[:, 5], dots[:, 6], dots[:, 7]
         iyf = iy.to(f32)

@@ -23,13 +23,19 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The LK level kernels K3 and K4 share one argument list: prev, next, hp, wp,
+# pts, guess, active, n, win, iters, eps^2, min_eig, pad, flow, ok, stats,
+# device, stream.
+_LK_LEVEL = [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P, _I, _P]
 # C entry points of csrc/: name -> argtypes (all return a cudaError_t as int).
 _SIGNATURES = {
-    # img, hp, wp, corners, n, S, out, device, stream
-    "svo_extract_windows_int": [_P, _I, _I, _P, _I, _I, _P, _I, _P],
+    # img, hp, wp, corners, n, Sh, Sw, out, device, stream
+    "svo_extract_windows_int": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P],
     # img, hp, wp, centers, n, P, pad, out, device, stream
     "svo_extract_patches": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P],
+    "svo_lk_level_cell": _LK_LEVEL,
+    "svo_lk_level_v1": _LK_LEVEL,
 }
 
 _lock = threading.Lock()

@@ -2,7 +2,8 @@
 
 * K1, port of ``patch_pallas.extract_windows_int``
   (``stereo_visual_odometry_tpu/ops/patch_pallas.py:167-183``): the LK
-  window reads and the 3x3 subpixel neighbourhoods. CUDA kernel
+  window reads (square, or (Sh, Sw) for the XLA tracker's search windows)
+  and the 3x3 subpixel neighbourhoods. CUDA kernel
   ``csrc/extract_windows.cu``, plain version
   ``extract_windows_int_reference``.
 * K2, port of ``patch_pallas.extract_patches``
@@ -26,20 +27,26 @@ import torch.nn.functional as F
 from . import native
 
 
+def _window_shape(S) -> tuple[int, int]:
+    """``S`` or ``(Sh, Sw)`` -> (Sh, Sw)."""
+    return (S, S) if isinstance(S, int) else (int(S[0]), int(S[1]))
+
+
 def extract_windows_int_reference(img_pad: torch.Tensor, corner_rc: torch.Tensor,
-                                  S: int) -> torch.Tensor:
-    """Plain version: ``img_pad[r:r+S, c:c+S]`` per corner by advanced
-    indexing, corners clamped to [0, Hp-S] x [0, Wp-S] as the kernel does."""
+                                  S) -> torch.Tensor:
+    """Plain version: ``img_pad[r:r+Sh, c:c+Sw]`` per corner by advanced
+    indexing, corners clamped to [0, Hp-Sh] x [0, Wp-Sw] as the kernel does.
+    ``S`` is the side of a square window or ``(Sh, Sw)``."""
     hp, wp = img_pad.shape
-    r = torch.clamp(corner_rc[:, 0].long(), 0, hp - S)
-    c = torch.clamp(corner_rc[:, 1].long(), 0, wp - S)
-    off = torch.arange(S, device=img_pad.device)
-    rows = (r[:, None] + off)[:, :, None]
-    cols = (c[:, None] + off)[:, None, :]
+    sh, sw = _window_shape(S)
+    r = torch.clamp(corner_rc[:, 0].long(), 0, hp - sh)
+    c = torch.clamp(corner_rc[:, 1].long(), 0, wp - sw)
+    rows = (r[:, None] + torch.arange(sh, device=img_pad.device))[:, :, None]
+    cols = (c[:, None] + torch.arange(sw, device=img_pad.device))[:, None, :]
     return img_pad[rows, cols]
 
 
-def _check(img_pad: torch.Tensor, corner_rc: torch.Tensor, S: int) -> None:
+def _check(img_pad: torch.Tensor, corner_rc: torch.Tensor, S) -> None:
     if img_pad.dtype != torch.float32 or img_pad.dim() != 2:
         raise ValueError(f"img_pad must be 2-D float32, got {img_pad.dtype} "
                          f"{tuple(img_pad.shape)}")
@@ -53,15 +60,17 @@ def _check(img_pad: torch.Tensor, corner_rc: torch.Tensor, S: int) -> None:
     if not (img_pad.is_contiguous() and corner_rc.is_contiguous()):
         raise ValueError("img_pad and corner_rc must be contiguous")
     hp, wp = img_pad.shape
-    if not 1 <= S <= min(hp, wp):
+    sh, sw = _window_shape(S)
+    if not (1 <= sh <= hp and 1 <= sw <= wp):
         raise ValueError(f"window S={S} does not fit the image {(hp, wp)}")
 
 
 def extract_windows_int(img_pad: torch.Tensor, corner_rc: torch.Tensor,
-                        S: int) -> torch.Tensor:
-    """(Hp, Wp) float32 image + (N, 2) int32 [row, col] corners -> (N, S, S).
+                        S) -> torch.Tensor:
+    """(Hp, Wp) float32 image + (N, 2) int32 [row, col] corners -> (N, Sh, Sw)
+    for ``S`` = ``(Sh, Sw)``, or (N, S, S) for an int ``S``.
 
-    Corners follow the JAX contract (pre-clipped to [0, Hp-S] x [0, Wp-S]).
+    Corners follow the JAX contract (pre-clipped to [0, Hp-Sh] x [0, Wp-Sw]).
     ``extract_windows_int.launches`` counts the CUDA kernel's launches.
     """
     _check(img_pad, corner_rc, S)
@@ -70,11 +79,12 @@ def extract_windows_int(img_pad: torch.Tensor, corner_rc: torch.Tensor,
     if img_pad.device.type != "cuda":
         raise ValueError(f"unsupported device {img_pad.device}")
     hp, wp = img_pad.shape
+    sh, sw = _window_shape(S)
     n = corner_rc.shape[0]
-    out = torch.empty((n, S, S), dtype=torch.float32, device=img_pad.device)
+    out = torch.empty((n, sh, sw), dtype=torch.float32, device=img_pad.device)
     stream = torch.cuda.current_stream(img_pad.device).cuda_stream
     err = native.lib().svo_extract_windows_int(
-        img_pad.data_ptr(), hp, wp, corner_rc.data_ptr(), n, S, out.data_ptr(),
+        img_pad.data_ptr(), hp, wp, corner_rc.data_ptr(), n, sh, sw, out.data_ptr(),
         img_pad.device.index, stream)
     if err != 0:
         raise RuntimeError(f"extract_windows_int launch failed: cudaError {err}")

@@ -37,7 +37,9 @@ def feat_from_jax(feat_np: dict, device=None) -> dict:
 def state_from_jax(state_np: dict, device=None) -> dict:
     """A JAX LK or ORB frontend state (every leaf as numpy) -> the port's
     state dict. The JAX PRNG ``key`` is not carried: the port draws from a
-    torch.Generator."""
+    torch.Generator. An LK state carries its prior as the JAX one holds it:
+    ``dmap`` (sweep), ``disp_grid`` (disparity grid) or neither
+    (``lk_predictive=False``)."""
     to_f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
     state = {
         "status": torch.tensor(int(state_np["status"]), dtype=torch.int32,
@@ -53,7 +55,9 @@ def state_from_jax(state_np: dict, device=None) -> dict:
             "pyr_r": tuple(to_f32(a) for a in state_np["pyr_r"]),
             "kp_valid": torch.tensor(np.asarray(state_np["kp_valid"]),
                                      dtype=torch.bool, device=device),
-            "kp": to_f32(state_np["kp"]), "dmap": to_f32(state_np["dmap"]),
+            "kp": to_f32(state_np["kp"]),
         })
+        state.update({k: to_f32(state_np[k]) for k in ("dmap", "disp_grid")
+                      if k in state_np})
     state.update({k: to_f32(state_np[k]) for k in ("T_wc", "T_21_prev")})
     return state

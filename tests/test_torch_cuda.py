@@ -1,6 +1,6 @@
-"""Card-only tests of the port: the CUDA kernels K1 and K2 against their plain
-versions, and the LK and ORB slices on cuda against the same slices on the
-CPU.
+"""Card-only tests of the port: the CUDA kernels K1-K4 against their plain
+versions, and the LK (dense and cell) and ORB slices on cuda against the
+same slices on the CPU.
 
 Marked ``cuda``; each skips without a GPU (decided inside the test). This
 file imports neither JAX nor the JAX package, so it runs on a machine with
@@ -9,7 +9,10 @@ a card and no JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: K1 exact (a copy). K2 exact (the kernel's __fmul_rn / __fmaf_rn
-are the plain version's products and exactly emulated fmas). The slices:
+are the plain version's products and exactly emulated fmas). K3 and K4:
+ok masks >= 99% equal, flows within 1e-3 px for >= 98% of the points both
+keep and within eps for all (block sums in another order can stop a point
+one iteration earlier or later, which moves it by less than eps). The slices:
 accept flags equal and poses within 1e-3 m / 1e-4, with the same RANSAC
 draws fed to both devices — the GPU sums in another order than the CPU
 (TF32 is off), nothing else differs.
@@ -20,7 +23,7 @@ import torch
 
 from stereo_visual_odometry_tpu_torch.models.frontend import VOConfig
 from stereo_visual_odometry_tpu_torch.models.system import System
-from stereo_visual_odometry_tpu_torch.ops import patch
+from stereo_visual_odometry_tpu_torch.ops import lk_cell, lk_v1, patch
 from stereo_visual_odometry_tpu_torch.ops import pnp as tpnp
 from stereo_visual_odometry_tpu_torch.utils import synthetic
 from stereo_visual_odometry_tpu_torch.utils.config import CameraConfig, RunConfig
@@ -104,6 +107,69 @@ def test_k2_rejects_mixed_devices():
         patch.extract_patches(torch.zeros(64, 64, device="cuda"), torch.zeros(4, 2), 39)
 
 
+def _textured(rng, hp, wp):
+    """Blurred uniform noise: texture everywhere."""
+    img = rng.random((hp + 8, wp + 8)) * 255
+    k = np.exp(-0.5 * (np.arange(-3, 4) / 1.2) ** 2)
+    k /= k.sum()
+    img = np.apply_along_axis(lambda r: np.convolve(r, k, mode="same"), 0, img)
+    img = np.apply_along_axis(lambda r: np.convolve(r, k, mode="same"), 1, img)
+    return img[4:-4, 4:-4].astype(np.float32)
+
+
+LK_LEVEL = {"cell": (lk_cell.level_track_cell, lk_cell.level_track_cell_reference),
+            "v1": (lk_v1.level_track_v1, lk_v1.level_track_v1_reference)}
+
+
+@pytest.mark.parametrize("kernel", ["cell", "v1"])
+@pytest.mark.parametrize("hp,wp,eps,radius", [(408, 1408, 0.01, 6), (216, 768, 0.03, 20)])
+def test_lk_level_kernel_matches_reference(kernel, hp, wp, eps, radius):
+    """K3/K4 at the padded LK level shapes, N=1024: a pair moved by (2, -1)
+    px, guesses within 1.5 px, a quarter of the points inactive."""
+    need_cuda()
+    rng = np.random.default_rng(hp)
+    prev = _textured(rng, hp, wp)
+    nxt = np.roll(prev, (-1, 2), axis=(0, 1))
+    pad = 12
+    pts = (rng.random((1024, 2)) * [wp - 2 * pad - 1, hp - 2 * pad - 1]).astype(np.float32)
+    guess = rng.uniform(-1.5, 1.5, (1024, 2)).astype(np.float32)
+    active = rng.random(1024) > 0.25
+    args = [torch.from_numpy(a).cuda() for a in (prev, nxt, pts, guess)]
+    kw = dict(eps=eps, search_radius=radius, pad=pad, active=torch.from_numpy(active).cuda())
+    fn, ref = LK_LEVEL[kernel]
+    before = fn.launches
+    stats = {}
+    fk, okk = fn(*args, stats=stats, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    fp, okp = ref(*args, **kw)
+    okk, okp = okk.cpu().numpy(), okp.cpu().numpy()
+    assert (okk == okp).mean() >= 0.99
+    both = okk & okp
+    assert both.sum() > 0.5 * active.sum()
+    d = (fk - fp).abs().amax(-1).cpu().numpy()[both]
+    assert d.max() <= eps and (d > 1e-3).mean() <= 0.02, np.sort(d)[-5:]
+    assert not okk[~active].any()
+    it = stats["iters"].cpu().numpy()
+    assert (it[~active] == 0).all() and it.max() <= 30
+    # The shift is recovered (interior points).
+    assert np.median(np.abs(fk.cpu().numpy()[both] - [2.0, -1.0])) < 0.05
+    empty, ok0 = fn(args[0], args[1], args[2][:0], args[3][:0], pad=pad)
+    assert empty.shape == (0, 2) and ok0.shape == (0,)
+
+
+@pytest.mark.parametrize("kernel", ["cell", "v1"])
+def test_lk_level_kernel_rejects_mixed_devices(kernel):
+    need_cuda()
+    img = torch.zeros(64, 64, device="cuda")
+    with pytest.raises(ValueError, match="devices"):
+        LK_LEVEL[kernel][0](img, img, torch.zeros(4, 2), torch.zeros(4, 2, device="cuda"))
+
+
+COUNTERS = (patch.extract_windows_int, patch.extract_patches,
+            lk_cell.level_track_cell, lk_v1.level_track_v1)
+
+
 def _slice_on_both_devices(monkeypatch, seq, vo, chunk):
     rp = seq["rig"]
     cfg = RunConfig(camera=CameraConfig(fx=rp["fx"], fy=rp["fy"], cx=rp["cx"],
@@ -117,13 +183,13 @@ def _slice_on_both_devices(monkeypatch, seq, vo, chunk):
         queue = [torch.from_numpy(u).to(device) for u in draws]
         monkeypatch.setattr(tpnp, "ransac_pnp",
                             lambda *a, u=None, **kw: orig(*a, u=queue.pop(0), **kw))
-        patch.extract_windows_int.launches = patch.extract_patches.launches = 0
+        for fn in COUNTERS:
+            fn.launches = 0
         sys_ = System(cfg, device=device)
         traj = sys_.run_chunked(frames, chunk=chunk)
-        runs[device] = (sys_, traj, patch.extract_windows_int.launches,
-                        patch.extract_patches.launches)
+        runs[device] = (sys_, traj, *(fn.launches for fn in COUNTERS))
     (s_c, t_c, *n_c), (s_g, t_g, *n_g) = runs["cpu"], runs["cuda"]
-    assert n_c == [0, 0]
+    assert n_c == [0, 0, 0, 0]
     assert [m["accept"] for m in s_g.metrics] == [m["accept"] for m in s_c.metrics]
     np.testing.assert_allclose(t_g[:, :3, 3], t_c[:, :3, 3], atol=1e-3, rtol=0)
     np.testing.assert_allclose(t_g[:, :3, :3], t_c[:, :3, :3], atol=1e-4, rtol=0)
@@ -135,7 +201,17 @@ def test_slice_on_cuda_matches_cpu(monkeypatch):
     seq = synthetic.render_sequence(n_frames=8, h=192, w=256, fx=300.0)
     vo = VOConfig(height=192, width=256, max_features=256, num_hypotheses=128,
                   min_features_track=8, min_inlier_rate=0.3)
-    assert _slice_on_both_devices(monkeypatch, seq, vo, chunk=4) == [1 + 27 * 7, 0]
+    assert _slice_on_both_devices(monkeypatch, seq, vo, chunk=4) == [1 + 27 * 7, 0, 0, 0]
+
+
+def test_cell_slice_on_cuda_matches_cpu(monkeypatch):
+    """``lk_kernel='cell'``: 6 K3 launches per tracked frame, K1 only for
+    the subpixel refine (once per frame)."""
+    need_cuda()
+    seq = synthetic.render_sequence(n_frames=8, h=192, w=256, fx=300.0)
+    vo = VOConfig(height=192, width=256, max_features=256, num_hypotheses=128,
+                  min_features_track=8, min_inlier_rate=0.3, lk_kernel="cell")
+    assert _slice_on_both_devices(monkeypatch, seq, vo, chunk=4) == [8, 0, 6 * 7, 0]
 
 
 def test_orb_slice_on_cuda_matches_cpu(monkeypatch):
@@ -147,4 +223,4 @@ def test_orb_slice_on_cuda_matches_cpu(monkeypatch):
     vo = VOConfig(mode="orb", height=128, width=320, max_features=256, orb_levels=4,
                   num_hypotheses=128, min_features_track=8, min_inlier_rate=0.3)
     # Per frame (the init included): two images x 4 levels, one K1 and one K2 each.
-    assert _slice_on_both_devices(monkeypatch, seq, vo, chunk=4) == [8 * 8, 8 * 8]
+    assert _slice_on_both_devices(monkeypatch, seq, vo, chunk=4) == [8 * 8, 8 * 8, 0, 0]

@@ -32,7 +32,8 @@ from stereo_visual_odometry_tpu_torch.models import frontend as tfront
 from stereo_visual_odometry_tpu_torch.models.system import System
 from stereo_visual_odometry_tpu_torch.utils import bridge
 from stereo_visual_odometry_tpu_torch.utils import synthetic as tsyn
-from stereo_visual_odometry_tpu_torch.utils.config import CameraConfig, RunConfig
+from stereo_visual_odometry_tpu_torch.utils.config import (CameraConfig, RunConfig,
+                                                           rig_from_config)
 from torch_jax_kernels import jax_pallas_kernels, with_sensor_noise
 
 REPO = Path(__file__).resolve().parent.parent
@@ -82,14 +83,36 @@ def test_import_without_jax():
 
 
 @pytest.mark.parametrize("kw", [dict(mode="orb", persistent_tracks=True),
-                                dict(lk_kernel="cell"),
-                                dict(lk_kernel="v1"), dict(lk_backend="xla"),
-                                dict(lk_sweep=False), dict(persistent_tracks=True)])
+                                dict(persistent_tracks=True)])
 def test_unported_branches_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         System(RunConfig(vo=tfront.VOConfig(**kw)), device="cpu")
-    if kw.get("persistent_tracks"):
-        assert "slice 3" in str(err.value)
+    assert "slice 3" in str(err.value)
+
+
+LK_BRANCHES = [dict(lk_kernel="cell"), dict(lk_kernel="v1"), dict(lk_backend="xla"),
+               dict(lk_sweep=False), dict(lk_predictive=False)]
+
+
+@pytest.mark.parametrize("kw", LK_BRANCHES, ids=lambda kw: "-".join(map(str, kw.items())))
+def test_lk_branches_take_a_step(kw):
+    """Every LK branch of the JAX VOConfig builds, carries its prior in the
+    state, and tracks: the second step on the 192x256 scene is accepted.
+    (With the dense kernel and no sweep, the JAX package too tracks few
+    points on the first step: 0 with the 24 px default grid, 78 with no
+    prior, against 132 with the sweep; its convergence gate fails the rest.)"""
+    seq = tsyn.render_sequence(n_frames=3, h=H, w=W, fx=FX, speed=1.0)
+    rp = seq["rig"]
+    cam = CameraConfig(fx=FX, fy=FX, cx=rp["cx"], cy=rp["cy"], baseline=rp["baseline"])
+    sys_ = System(RunConfig(camera=cam, vo=tfront.VOConfig(**SMALL, **kw)), device="cpu")
+    sys_.step(seq["images_l"][0], seq["images_r"][0])
+    prior = {k for k in ("dmap", "disp_grid") if k in sys_.state}
+    want = ({"dmap"} if kw.get("lk_sweep", True) else {"disp_grid"}) \
+        if kw.get("lk_predictive", True) else set()
+    assert prior == want
+    sys_.step(seq["images_l"][1], seq["images_r"][1])
+    m = sys_.step(seq["images_l"][2], seq["images_r"][2])
+    assert m["accept"] and m["n_tracked"] > 0.3 * m["n_detected"], m
 
 
 def test_orb_mode_builds_and_ignores_lk_options():
@@ -105,6 +128,22 @@ def test_system_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             System(RunConfig())
+
+
+@pytest.mark.parametrize("make", [tfront.make_lk_frontend, tfront.make_orb_frontend,
+                                  tfront.make_frontend, tfront.make_chunked_frontend])
+def test_frontend_factories_default_to_cuda(make):
+    """The factories too: no device means the card, an error without one,
+    and a rig on another device than the frontend's is refused."""
+    cfg = tfront.VOConfig(**SMALL)
+    if torch.cuda.is_available():
+        make(cfg, rig_from_config(CameraConfig(), device="cuda"))
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(cfg, rig_from_config(CameraConfig(), device="cpu"))
+    with pytest.raises(ValueError, match="rig"):
+        make(cfg, rig_from_config(CameraConfig(), device="meta"), device="cpu")
+    make(cfg, rig_from_config(CameraConfig(), device="cpu"), device="cpu")
 
 
 def test_ba_backend_raises_and_unknown_mode_rejected():

@@ -115,7 +115,8 @@ def test_track_two_levels_with_prior(scene, pallas_interpret):
                         init_flow=jnp.asarray(prior), active=jnp.asarray(valid),
                         rounds_coarse=4, rounds_refine=2)
     nt, okt = tlk.track(to_t(pyr["t1l"]), to_t(pyr["t2l"]), torch.from_numpy(xy),
-                        levels=2, init_flow=torch.from_numpy(prior),
+                        levels=2, use_pallas=True, pallas_kernel="dense",
+                        init_flow=torch.from_numpy(prior),
                         active=torch.from_numpy(valid), rounds_coarse=4,
                         rounds_refine=2)
     assert_tracks_agree(nt, okt, nj, okj)
@@ -143,9 +144,10 @@ def test_circular_track_sweep_and_motion_prior(scene, pallas_interpret):
         rounds_prior=4, rounds_coarse=8, rounds_refine=2)
     qt = tlk.circular_track(
         tuple(to_t(pyr[k]) for k in pyrs), torch.from_numpy(xy),
-        torch.from_numpy(valid), trig, torch.from_numpy(T_pred),
-        torch.from_numpy(dmap), sweep_d_max=48, stereo_levels=1,
-        temporal_levels=2, rounds_prior=4, rounds_refine=2)
+        torch.from_numpy(valid), use_pallas=True, pallas_kernel="dense", rig=trig,
+        T_pred=torch.from_numpy(T_pred), use_sweep=True, sweep_d_max=48,
+        stereo_levels=1, temporal_levels=2, dmap_prev=torch.from_numpy(dmap),
+        rounds_prior=4, rounds_coarse=8, rounds_refine=2)
     np.testing.assert_array_equal(qt["dmap"].numpy(), np.asarray(qj["dmap"]))
     okt, okj = qt["valid"].numpy(), np.asarray(qj["valid"])
     assert (okt == okj).mean() >= OK_AGREE

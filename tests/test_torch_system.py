@@ -22,7 +22,6 @@ another tracker). Tolerances:
     samples; over the 7 steps that moves the trajectory by a few cm.
 """
 import numpy as np
-import jax
 import pytest
 import torch
 
@@ -36,7 +35,7 @@ from stereo_visual_odometry_tpu_torch.models.system import System
 from stereo_visual_odometry_tpu_torch.ops import pnp as tpnp
 from stereo_visual_odometry_tpu_torch.utils import synthetic, trajectory
 from stereo_visual_odometry_tpu_torch.utils.config import CameraConfig, RunConfig
-from torch_jax_kernels import jax_pallas_kernels, with_sensor_noise
+from torch_jax_kernels import jax_draws, jax_pallas_kernels, with_sensor_noise
 
 SMALL = dict(height=192, width=256, max_features=256, num_hypotheses=128,
              min_features_track=8, min_inlier_rate=0.3)
@@ -76,14 +75,7 @@ def jax_run(seq):
 
 
 def _jax_draws(n_steps):
-    """The uniforms each JAX step drew (System: PRNGKey(seed) -> split for
-    init -> split per step in the frontend, pnp.py:186)."""
-    _, k = jax.random.split(jax.random.PRNGKey(0))
-    draws = []
-    for _ in range(n_steps):
-        k, sub = jax.random.split(k)
-        draws.append(np.array(jax.random.uniform(sub, (SMALL["num_hypotheses"], 6))))
-    return draws
+    return jax_draws(n_steps, SMALL["num_hypotheses"])
 
 
 def _port(seq, method, vo=None, frames=None):

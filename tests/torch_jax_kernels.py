@@ -1,14 +1,17 @@
-"""Shared by the port's parity tests: run the JAX package's ORB path with its
-Pallas kernels in interpret mode, as the TPU runs it.
+"""Shared by the port's parity tests: run the JAX package with its Pallas
+kernels in interpret mode, as the TPU runs them.
 
 On the CPU the JAX package would take its XLA routes instead: the bilinear
-sampler ``interp.sample_patches`` for K2 and XLA gathers for the subpixel
-reads. Inside ``jax_pallas_kernels()``, ``lk.use_pallas_default`` says True,
-K1 (``extract_windows_int``) runs with ``interpret=True`` and K2
-(``extract_patches``) with ``use_pallas=True, interpret=True``. JAX's caches
-are cleared on entry and exit: ``orb.detect_and_describe_pair`` is a
-module-level ``jax.jit``, and a trace cached by another test in the same
-process would keep the XLA route.
+sampler ``interp.sample_patches`` for K2, XLA gathers for the subpixel
+reads, and ``lk._level_track`` for LK. Inside ``jax_pallas_kernels()``,
+``lk.use_pallas_default`` says True, K1 (``extract_windows_int``) runs with
+``interpret=True``, K2 (``extract_patches``) with ``use_pallas=True,
+interpret=True``, and the LK level kernels K3
+(``lk_pallas_cell.level_track_pallas_cell``) and K4
+(``lk_pallas.level_track_pallas``) with ``interpret=True``. JAX's caches are
+cleared on entry and exit: ``orb.detect_and_describe_pair`` and
+``lk.track`` are module-level ``jax.jit``s, and a trace cached by another
+test in the same process would keep the XLA route.
 """
 import contextlib
 
@@ -17,12 +20,13 @@ import numpy as np
 import pytest
 
 from stereo_visual_odometry_tpu.ops import lk as jlk
-from stereo_visual_odometry_tpu.ops import patch_pallas
+from stereo_visual_odometry_tpu.ops import lk_pallas, lk_pallas_cell, patch_pallas
 
 
 @contextlib.contextmanager
 def jax_pallas_kernels():
     windows, patches = patch_pallas.extract_windows_int, patch_pallas.extract_patches
+    cell, v1 = lk_pallas_cell.level_track_pallas_cell, lk_pallas.level_track_pallas
     jax.clear_caches()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jlk, "use_pallas_default", lambda: True)
@@ -31,10 +35,26 @@ def jax_pallas_kernels():
         mp.setattr(patch_pallas, "extract_patches",
                    lambda img, c, P, use_pallas=None, interpret=False:
                    patches(img, c, P, use_pallas=True, interpret=True))
+        mp.setattr(lk_pallas_cell, "level_track_pallas_cell",
+                   lambda *a, interpret=False, **kw: cell(*a, interpret=True, **kw))
+        mp.setattr(lk_pallas, "level_track_pallas",
+                   lambda *a, interpret=False, **kw: v1(*a, interpret=True, **kw))
         try:
             yield
         finally:
             jax.clear_caches()
+
+
+def jax_draws(n_steps: int, num_hypotheses: int, seed: int = 0) -> list[np.ndarray]:
+    """The RANSAC uniforms each step of the JAX ``System`` draws
+    (PRNGKey(seed) -> split for init -> split per step in the frontend,
+    ``pnp.py:186``), to inject into the port's steps."""
+    _, k = jax.random.split(jax.random.PRNGKey(seed))
+    draws = []
+    for _ in range(n_steps):
+        k, sub = jax.random.split(k)
+        draws.append(np.array(jax.random.uniform(sub, (num_hypotheses, 6))))
+    return draws
 
 
 def textured(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
