@@ -7,9 +7,12 @@ function's counterpart is found by name:
   ops/     batched geometry + vision ops on tensors; ``patch.py`` holds the
            wrappers of the hand-written CUDA patch kernels (K1, K2),
            ``lk_cell.py`` and ``lk_v1.py`` those of the LK level kernels
-           (K3, K4)
+           (K3, K4), ``lk_block.py`` and ``lk_v2.py`` those of the archived
+           block LK kernels and their timing split (K5, K6, K8), ``roll.py``
+           the dynamic roll (K7)
   models/  the LK and ORB frontend steps and the ``System`` runtime
   utils/   config, synthetic sequences, trajectory metrics, JAX-state bridge
+  probes/  the JAX package's kernel probes, ``python -m``-runnable
   csrc/    CUDA C++ sources, built with nvcc at first use
 
 The port imports ``torch`` and never ``jax``.

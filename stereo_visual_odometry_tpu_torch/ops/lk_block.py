@@ -1,0 +1,160 @@
+"""K5: the block cell-blend LK level kernel, and K8: its timing split.
+
+* K5, port of ``lk_pallas_block.level_track_pallas_block``
+  (``scripts/lk_pallas_block.py:249-296``, kernel ``_make_kernel`` :58): K3's
+  function (``lk_cell``), which the JAX kernel computes for BLK = 8 points at
+  once as (8, 1) vectors. Its ``active`` mask is applied after the kernel
+  there (inactive points iterate, then ``flow = guess``, ``ok = False``); the
+  port's kernel skips them, as K3's does, with the same output, and their
+  ``stats`` are 0.
+* K8, port of ``probe_lk_breakdown.variant_kernel``
+  (``scripts/probe_lk_breakdown.py:42-104``, called by ``run_variant`` :106):
+  K5 cut into ``tmpl`` (the template phase only), ``reload`` (the template,
+  then ``rounds`` forced window reloads with their 8 dots, no iterations) and
+  ``full`` (K5 itself), to time where an LK level call's time goes.
+
+CUDA kernel ``csrc/lk_block.cu`` (one warp per point; entries
+``svo_lk_level_block`` and ``svo_lk_block_split``). The wrappers route by
+device as ``lk_v1.level_track_v1`` does (a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel, anything else raises) and count
+their launches in ``level_track_block.launches`` and
+``level_track_block_split.launches``. The JAX wrapper's N % 8 pad and the
+Mosaic shapes are not needed: any N works.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import lk_cell, lk_dense, lk_v1, patch
+
+# Points per CTA of csrc/lk_block.cu (one warp each).
+POINTS_PER_CTA = 4
+# K8's variants and their C mode numbers.
+SPLIT_MODES = {"full": 0, "tmpl": 1, "reload": 2}
+# The JAX probe's operating point for ``full`` (probe_lk_breakdown.py:36-38):
+# zero guesses, 30 iterations, eps 0.01.
+SPLIT_ITERS, SPLIT_EPS = 30, 0.01
+
+
+def smem_bytes(win: int) -> int:
+    """Shared memory of one CTA of csrc/lk_block.cu: per point the (win+3)^2
+    window buffer, the (win+2)^2 field and T/Ix/Iy."""
+    return 4 * POINTS_PER_CTA * ((win + 3) ** 2 + (win + 2) ** 2 + 3 * win * win)
+
+
+def level_track_block_reference(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
+                                pts: torch.Tensor, guess: torch.Tensor, win: int = 21,
+                                iters: int = 30, eps: float = 0.01,
+                                min_eig: float = 1e-4, search_radius: int = 6,
+                                pad: int = 0, active: torch.Tensor | None = None,
+                                stats: dict | None = None):
+    """Plain version of K5: K3's plain version
+    (``lk_cell.level_track_cell_reference``). The JAX kernel says it is K3's
+    iteration sequence up to float reassociation
+    (``lk_pallas_block.py:37-39``), and ``tests/test_torch_lk_block.py``
+    holds this function to the JAX kernel itself; its post-kernel ``active``
+    mask gives what K3's in-kernel skip gives."""
+    return lk_cell.level_track_cell_reference(img_prev_pad, img_next_pad, pts, guess,
+                                              win, iters, eps, min_eig, search_radius,
+                                              pad, active, stats)
+
+
+def level_track_block(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
+                      pts: torch.Tensor, guess: torch.Tensor, win: int = 21,
+                      iters: int = 30, eps: float = 0.01, min_eig: float = 1e-4,
+                      search_radius: int = 6, pad: int = 0,
+                      active: torch.Tensor | None = None, stats: dict | None = None):
+    """One LK level for N points: the signature and return of JAX
+    ``level_track_pallas_block`` without ``interpret``, plus ``stats`` (each
+    point's ``iters`` and ``reloads``) as in ``lk_cell.level_track_cell``.
+    Returns (flow (N, 2) = guess + found delta, ok (N,) bool)."""
+    lk_v1.check_inputs(img_prev_pad, img_next_pad, pts, guess, active, win)
+    if img_prev_pad.device.type == "cpu":
+        return level_track_block_reference(img_prev_pad, img_next_pad, pts, guess, win,
+                                           iters, eps, min_eig, search_radius, pad,
+                                           active, stats)
+    flow_d, ok = lk_v1.launch("svo_lk_level_block", img_prev_pad, img_next_pad, pts,
+                              guess, win, iters, eps, min_eig, pad, active, stats,
+                              smem=smem_bytes(win))
+    level_track_block.launches += 1
+    return lk_v1.finish(guess, flow_d, ok > 0, search_radius)
+
+
+level_track_block.launches = 0
+
+
+def _split_args(mode: str, rounds: int) -> int:
+    if mode not in SPLIT_MODES:
+        raise ValueError(f"mode must be one of {sorted(SPLIT_MODES)}, got {mode!r}")
+    if mode == "reload" and rounds < 1:
+        raise ValueError(f"the reload variant needs rounds >= 1, got {rounds}")
+    return rounds if mode == "reload" else 0
+
+
+def level_track_block_split_reference(img_prev_pad: torch.Tensor,
+                                      img_next_pad: torch.Tensor, pts: torch.Tensor,
+                                      pad: int, mode: str, rounds: int = 3,
+                                      win: int = 21, min_eig: float = 1e-4):
+    """Plain version of K8: the template sums from
+    ``lk_dense.template_phase``, then (``reload``) each forced round's 8 dots
+    of the (win+1)^2 window at ``clip(floor(p - r + round))``, which ignore
+    guess and flow; ``full`` is K5's plain version at the probe's operating
+    point with the raw delta and gate. Returns (flow (N, 2), ok (N,)
+    float32, dots (N, rounds, 8)) as ``level_track_block_split``."""
+    n_rounds = _split_args(mode, rounds)
+    n = pts.shape[0]
+    f32 = torch.float32
+    if mode == "full":
+        flow, ok = level_track_block_reference(
+            img_prev_pad, img_next_pad, pts, torch.zeros_like(pts), win, SPLIT_ITERS,
+            SPLIT_EPS, min_eig, float("inf"), pad)
+        return flow, ok.to(f32), torch.zeros((n, 0, 8), dtype=f32, device=pts.device)
+    hp, wp = img_prev_pad.shape
+    r = (win - 1) // 2
+    py, px = pts[:, 1] + pad, pts[:, 0] + pad
+    tpl = lk_dense.template_phase(img_prev_pad, py, px, win, min_eig,
+                                  windows=patch.extract_windows_int_reference)
+    sums = lambda a: torch.sum(a, dim=(1, 2))
+    acc = (sums(tpl.Ix * tpl.Ix) + sums(tpl.Ix * tpl.Iy) + sums(tpl.Iy * tpl.Iy)
+           + tpl.tIx + tpl.tIy)
+    dots = torch.zeros((n, n_rounds, 8), dtype=f32, device=pts.device)
+    grad = lk_dense.grad8(tpl.Ix, tpl.Iy)
+    for rd in range(n_rounds):
+        iy = torch.clamp(torch.floor(py - r + rd).to(torch.int32), 0, hp - win - 1)
+        ix = torch.clamp(torch.floor(px - r + rd).to(torch.int32), 0, wp - win - 1)
+        W = patch.extract_windows_int_reference(img_next_pad, torch.stack([iy, ix], -1),
+                                                win + 1)
+        dots[:, rd] = torch.bmm(W.reshape(n, 1, -1), grad)[:, 0]
+    extra = dots[:, -1, 0] if n_rounds else torch.zeros_like(acc)
+    return torch.stack([acc + extra, acc], dim=-1), acc.clone(), dots
+
+
+def level_track_block_split(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
+                            pts: torch.Tensor, pad: int, mode: str, rounds: int = 3,
+                            win: int = 21, min_eig: float = 1e-4):
+    """K8: one variant of K5 on (Hp, Wp) levels edge-padded by ``pad``.
+
+    ``mode`` is ``tmpl``, ``reload`` (``rounds`` >= 1 forced reloads) or
+    ``full``. Returns the JAX variant's outputs: ``tmpl``/``reload`` give the
+    checksums flow = (acc [+ the last round's first dot], acc) and ok = acc,
+    with acc = g00 + g01 + g11 + tIx + tIy; ``full`` gives K5's raw delta and
+    gate (0/1) with zero guesses, 30 iterations, eps 0.01. Also returns every
+    round's 8 dots, (N, rounds, 8) (empty but for ``reload``).
+    """
+    n_rounds = _split_args(mode, rounds)
+    guess = torch.zeros_like(pts)
+    lk_v1.check_inputs(img_prev_pad, img_next_pad, pts, guess, None, win)
+    if img_prev_pad.device.type == "cpu":
+        return level_track_block_split_reference(img_prev_pad, img_next_pad, pts, pad,
+                                                 mode, rounds, win, min_eig)
+    dots = torch.empty((pts.shape[0], n_rounds, 8), dtype=torch.float32,
+                       device=pts.device)
+    flow, ok = lk_v1.launch("svo_lk_block_split", img_prev_pad, img_next_pad, pts,
+                            guess, win, SPLIT_ITERS, SPLIT_EPS, min_eig, pad, None, None,
+                            smem=smem_bytes(win),
+                            extra=(SPLIT_MODES[mode], n_rounds, dots.data_ptr()))
+    level_track_block_split.launches += 1
+    return flow, ok, dots
+
+
+level_track_block_split.launches = 0

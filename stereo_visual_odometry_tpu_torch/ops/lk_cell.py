@@ -115,7 +115,7 @@ def level_track_cell(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
     flow_d, ok = lk_v1.launch("svo_lk_level_cell", img_prev_pad, img_next_pad, pts,
                               guess, win, iters, eps, min_eig, pad, active, stats)
     level_track_cell.launches += 1
-    return lk_v1.finish(guess, flow_d, ok, search_radius)
+    return lk_v1.finish(guess, flow_d, ok > 0, search_radius)
 
 
 level_track_cell.launches = 0

@@ -69,15 +69,19 @@ def finish(guess: torch.Tensor, flow_d: torch.Tensor, ok: torch.Tensor,
 def launch(entry: str, img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
            pts: torch.Tensor, guess: torch.Tensor, win: int, iters: int, eps: float,
            min_eig: float, pad: int, active: torch.Tensor | None,
-           stats: dict | None):
-    """Launch K3 or K4 (``entry``) on CUDA tensors; returns the raw
-    (delta (N, 2), gate ok (N,)) and, into ``stats``, each point's
-    iterations and window reloads."""
+           stats: dict | None, smem: int | None = None, extra: tuple = ()):
+    """Launch an LK level kernel (``entry``: K3-K6, or K8 with its mode,
+    rounds and dots pointer as ``extra``, the C arguments after ``stats``) on
+    CUDA tensors. ``smem`` is the kernel's shared memory per CTA (K3/K4's by
+    default). Returns the raw (delta (N, 2), ok (N,) float32: the gate as 0/1,
+    or K8's checksum) and, into ``stats``, each point's iterations and window
+    reloads."""
     dev = img_prev_pad.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if _smem_bytes(win) > _SMEM_LIMIT:
-        raise ValueError(f"win={win} needs {_smem_bytes(win)} B of shared memory, "
+    smem = _smem_bytes(win) if smem is None else smem
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"win={win} needs {smem} B of shared memory, "
                          f"more than the {_SMEM_LIMIT} B a CTA can hold")
     n = pts.shape[0]
     hp, wp = img_prev_pad.shape
@@ -92,12 +96,12 @@ def launch(entry: str, img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
     err = getattr(native.lib(), entry)(
         prev.data_ptr(), nxt.data_ptr(), hp, wp, pts.data_ptr(), guess.data_ptr(),
         act.data_ptr(), n, win, iters, eps * eps, min_eig, pad, flow_d.data_ptr(),
-        ok.data_ptr(), counts.data_ptr(), dev.index, stream)
+        ok.data_ptr(), counts.data_ptr(), *extra, dev.index, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     if stats is not None:
         stats["iters"], stats["reloads"] = counts[:, 0], counts[:, 1]
-    return flow_d, ok > 0
+    return flow_d, ok
 
 
 def level_track_v1_reference(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
@@ -178,7 +182,7 @@ def level_track_v1(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
     flow_d, ok = launch("svo_lk_level_v1", img_prev_pad, img_next_pad, pts, guess,
                         win, iters, eps, min_eig, pad, active, stats)
     level_track_v1.launches += 1
-    return finish(guess, flow_d, ok, search_radius)
+    return finish(guess, flow_d, ok > 0, search_radius)
 
 
 level_track_v1.launches = 0

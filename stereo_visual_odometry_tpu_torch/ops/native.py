@@ -24,7 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# The LK level kernels K3 and K4 share one argument list: prev, next, hp, wp,
+# The LK level kernels K3-K6 share one argument list: prev, next, hp, wp,
 # pts, guess, active, n, win, iters, eps^2, min_eig, pad, flow, ok, stats,
 # device, stream.
 _LK_LEVEL = [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P, _I, _P]
@@ -36,6 +36,12 @@ _SIGNATURES = {
     "svo_extract_patches": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P],
     "svo_lk_level_cell": _LK_LEVEL,
     "svo_lk_level_v1": _LK_LEVEL,
+    "svo_lk_level_block": _LK_LEVEL,
+    "svo_lk_level_v2": _LK_LEVEL,
+    # the LK level arguments up to stats, then mode, rounds, dots, device, stream
+    "svo_lk_block_split": _LK_LEVEL[:-2] + [_I, _I, _P, _I, _P],
+    # x, rows, cols, amt, axis, out, device, stream
+    "svo_roll": [_P, _I, _I, _P, _I, _P, _I, _P],
 }
 
 _lock = threading.Lock()

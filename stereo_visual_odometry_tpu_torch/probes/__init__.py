@@ -1,0 +1,9 @@
+"""Probes: the JAX package's kernel probes (``scripts/probe_*.py``) ported,
+each runnable with ``python -m stereo_visual_odometry_tpu_torch.probes.<name>``
+on the card (``--device cpu`` runs the plain versions at a small size).
+
+  lk_block      K5/K6 against K3/K4: parity and time per level call
+  lk_breakdown  K8: an LK level call split into template, reloads, iterations
+  roll          K7: the dynamic-roll envelope
+  timing        CUDA-event and CUDA-graph timers shared with ``chip_smoke.py``
+"""

@@ -1,4 +1,4 @@
-"""Card-only tests of the port: the CUDA kernels K1-K4 against their plain
+"""Card-only tests of the port: the CUDA kernels K1-K8 against their plain
 versions, and the LK (dense and cell) and ORB slices on cuda against the
 same slices on the CPU.
 
@@ -9,10 +9,12 @@ a card and no JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: K1 exact (a copy). K2 exact (the kernel's __fmul_rn / __fmaf_rn
-are the plain version's products and exactly emulated fmas). K3 and K4:
+are the plain version's products and exactly emulated fmas). K3-K6:
 ok masks >= 99% equal, flows within 1e-3 px for >= 98% of the points both
 keep and within eps for all (block sums in another order can stop a point
-one iteration earlier or later, which moves it by less than eps). The slices:
+one iteration earlier or later, which moves it by less than eps). K7 exact
+(a copy). K8's checksums within 1e-4 of their largest value (sums of ~441
+products in another order). The slices:
 accept flags equal and poses within 1e-3 m / 1e-4, with the same RANSAC
 draws fed to both devices — the GPU sums in another order than the CPU
 (TF32 is off), nothing else differs.
@@ -23,8 +25,10 @@ import torch
 
 from stereo_visual_odometry_tpu_torch.models.frontend import VOConfig
 from stereo_visual_odometry_tpu_torch.models.system import System
-from stereo_visual_odometry_tpu_torch.ops import lk_cell, lk_v1, patch
+from stereo_visual_odometry_tpu_torch.ops import lk_block, lk_cell, lk_v1, lk_v2, patch, roll
 from stereo_visual_odometry_tpu_torch.ops import pnp as tpnp
+from stereo_visual_odometry_tpu_torch.probes import lk_breakdown
+from stereo_visual_odometry_tpu_torch.probes import roll as probe_roll
 from stereo_visual_odometry_tpu_torch.utils import synthetic
 from stereo_visual_odometry_tpu_torch.utils.config import CameraConfig, RunConfig
 
@@ -117,15 +121,20 @@ def _textured(rng, hp, wp):
     return img[4:-4, 4:-4].astype(np.float32)
 
 
-LK_LEVEL = {"cell": (lk_cell.level_track_cell, lk_cell.level_track_cell_reference),
-            "v1": (lk_v1.level_track_v1, lk_v1.level_track_v1_reference)}
+# kernel -> (wrapper, plain version, takes an ``active`` mask)
+LK_LEVEL = {"cell": (lk_cell.level_track_cell, lk_cell.level_track_cell_reference, True),
+            "v1": (lk_v1.level_track_v1, lk_v1.level_track_v1_reference, True),
+            "block": (lk_block.level_track_block, lk_block.level_track_block_reference,
+                      True),
+            "v2": (lk_v2.level_track_v2, lk_v2.level_track_v2_reference, False)}
 
 
-@pytest.mark.parametrize("kernel", ["cell", "v1"])
+@pytest.mark.parametrize("kernel", list(LK_LEVEL))
 @pytest.mark.parametrize("hp,wp,eps,radius", [(408, 1408, 0.01, 6), (216, 768, 0.03, 20)])
 def test_lk_level_kernel_matches_reference(kernel, hp, wp, eps, radius):
-    """K3/K4 at the padded LK level shapes, N=1024: a pair moved by (2, -1)
-    px, guesses within 1.5 px, a quarter of the points inactive."""
+    """K3-K6 at the padded LK level shapes, N=1024: a pair moved by (2, -1)
+    px, guesses within 1.5 px, a quarter of the points inactive (K6 takes no
+    mask: every point is tracked)."""
     need_cuda()
     rng = np.random.default_rng(hp)
     prev = _textured(rng, hp, wp)
@@ -133,10 +142,12 @@ def test_lk_level_kernel_matches_reference(kernel, hp, wp, eps, radius):
     pad = 12
     pts = (rng.random((1024, 2)) * [wp - 2 * pad - 1, hp - 2 * pad - 1]).astype(np.float32)
     guess = rng.uniform(-1.5, 1.5, (1024, 2)).astype(np.float32)
-    active = rng.random(1024) > 0.25
+    fn, ref, masked = LK_LEVEL[kernel]
+    active = rng.random(1024) > 0.25 if masked else np.ones(1024, bool)
     args = [torch.from_numpy(a).cuda() for a in (prev, nxt, pts, guess)]
-    kw = dict(eps=eps, search_radius=radius, pad=pad, active=torch.from_numpy(active).cuda())
-    fn, ref = LK_LEVEL[kernel]
+    kw = dict(eps=eps, search_radius=radius, pad=pad)
+    if masked:
+        kw["active"] = torch.from_numpy(active).cuda()
     before = fn.launches
     stats = {}
     fk, okk = fn(*args, stats=stats, **kw)
@@ -158,12 +169,64 @@ def test_lk_level_kernel_matches_reference(kernel, hp, wp, eps, radius):
     assert empty.shape == (0, 2) and ok0.shape == (0,)
 
 
-@pytest.mark.parametrize("kernel", ["cell", "v1"])
+@pytest.mark.parametrize("kernel", list(LK_LEVEL) + ["split"])
 def test_lk_level_kernel_rejects_mixed_devices(kernel):
     need_cuda()
     img = torch.zeros(64, 64, device="cuda")
     with pytest.raises(ValueError, match="devices"):
-        LK_LEVEL[kernel][0](img, img, torch.zeros(4, 2), torch.zeros(4, 2, device="cuda"))
+        if kernel == "split":
+            lk_block.level_track_block_split(img, img, torch.zeros(8, 2), 12, "tmpl")
+        else:
+            LK_LEVEL[kernel][0](img, img, torch.zeros(4, 2),
+                                torch.zeros(4, 2, device="cuda"))
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_k7_roll_kernel_matches_reference(axis):
+    """K7 over the probe's grid and amounts -1, the axis length and + 5:
+    exact (a copy)."""
+    need_cuda()
+    before = roll.roll.launches
+    worst = probe_roll.envelope("cuda", extended=True)
+    assert roll.roll.launches > before
+    assert all(err == 0.0 for ax, _, err in worst if ax == axis), worst
+    x = torch.rand(128, 256, device="cuda")
+    for amt in (-300, -1, 0, 9, 255, 256, 1000):
+        a = torch.tensor([[amt]], dtype=torch.int32, device="cuda")
+        torch.testing.assert_close(roll.roll(x, a, axis), roll.roll_reference(x, a, axis),
+                                   rtol=0, atol=0)
+
+
+def test_k7_rejects_mixed_devices():
+    need_cuda()
+    with pytest.raises(ValueError):
+        roll.roll(torch.zeros(16, 256, device="cuda"), torch.zeros((1, 1), dtype=torch.int32),
+                  0)
+
+
+@pytest.mark.parametrize("label", list(lk_breakdown.VARIANTS))
+def test_k8_split_kernel_matches_reference(label):
+    """K8 at its probe's operating point, (408, 1408) and N = 1024: the
+    tmpl/reload checksums and dots within 1e-4 relative; ``full`` is K5 on
+    the same inputs, bit for bit."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.probes import lk_block as probe_block
+    inputs = probe_block.make_inputs("cuda")
+    before = lk_block.level_track_block_split.launches
+    got = lk_breakdown.run_variant(label, inputs)
+    torch.cuda.synchronize()
+    assert lk_block.level_track_block_split.launches == before + 1
+    if label == "full":
+        flow, ok = lk_block.level_track_block(
+            inputs["prev"], inputs["next"], inputs["pts"], inputs["guess"],
+            search_radius=float("inf"), pad=probe_block.PAD)
+        torch.testing.assert_close(got[0], flow, rtol=0, atol=0)
+        torch.testing.assert_close(got[1] > 0, ok, rtol=0, atol=0)
+    else:
+        want = lk_breakdown.run_variant(label, inputs, plain=True)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            assert lk_breakdown.rel_err(g, w) <= 1e-4
 
 
 COUNTERS = (patch.extract_windows_int, patch.extract_patches,

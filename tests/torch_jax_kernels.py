@@ -12,15 +12,31 @@ interpret=True``, and the LK level kernels K3
 cleared on entry and exit: ``orb.detect_and_describe_pair`` and
 ``lk.track`` are module-level ``jax.jit``s, and a trace cached by another
 test in the same process would keep the XLA route.
+
+K5-K8 live in ``scripts/``: ``load_script`` imports the two kernel modules
+(K5 ``lk_pallas_block``, K6 ``lk_pallas_v2``), which run nothing at import
+and take ``interpret=True``; ``jax_roll`` (K7) and ``jax_lk_breakdown`` (K8)
+execute only the function definitions of the probes, whose top level runs
+on the TPU, with ``pallas_call`` in interpret mode. No script is edited.
 """
+import ast
 import contextlib
+import functools
+import importlib.util
+import types
+from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from stereo_visual_odometry_tpu.ops import lk as jlk
 from stereo_visual_odometry_tpu.ops import lk_pallas, lk_pallas_cell, patch_pallas
+
+SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 
 
 @contextlib.contextmanager
@@ -85,3 +101,71 @@ def with_sensor_noise(images: np.ndarray, seed: int, sigma: float = 1.0) -> np.n
     """
     rng = np.random.default_rng(seed)
     return (images + rng.normal(0.0, sigma, images.shape)).astype(np.float32)
+
+
+def load_script(name: str) -> types.ModuleType:
+    """Import ``scripts/<name>.py``, a module that runs nothing at import
+    (``lk_pallas_block``, ``lk_pallas_v2``), under its own name."""
+    spec = importlib.util.spec_from_file_location(name, SCRIPTS / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def interpret_pallas() -> types.ModuleType:
+    """``jax.experimental.pallas`` with ``pallas_call`` in interpret mode."""
+    module = types.ModuleType("pallas_interpret")
+    module.__dict__.update(vars(pl))
+    module.pallas_call = functools.partial(pl.pallas_call, interpret=True)
+    return module
+
+
+def script_functions(name: str, functions: dict, namespace: dict) -> dict:
+    """Execute only the named top-level function definitions of
+    ``scripts/<name>.py`` (whose top level runs a probe on the TPU, so it is
+    not imported) in ``namespace``, and return the namespace.
+
+    ``functions`` maps each name to None, or to the name of a function
+    nested in it: the outer function's body is then cut after that
+    definition and returns it (how a test reaches ``run_variant``'s jitted
+    ``once`` without its timing loop)."""
+    path = SCRIPTS / f"{name}.py"
+    tree = ast.parse(path.read_text())
+    defs = [node for node in tree.body
+            if isinstance(node, ast.FunctionDef) and node.name in functions]
+    assert {d.name for d in defs} == set(functions), (name, functions)
+    for node in defs:
+        inner = functions[node.name]
+        if inner is not None:
+            cut = next(i for i, s in enumerate(node.body)
+                       if isinstance(s, ast.FunctionDef) and s.name == inner)
+            node.body = node.body[:cut + 1] + [
+                ast.Return(value=ast.Name(id=inner, ctx=ast.Load()))]
+    module = ast.fix_missing_locations(ast.Module(body=defs, type_ignores=[]))
+    exec(compile(module, str(path), "exec"), namespace)
+    return namespace
+
+
+def jax_roll(rows: int, cols: int, axis: int):
+    """K7, ``probe_roll.make(rows, cols, axis)`` in interpret mode: a jitted
+    ``run(x, amt)`` with ``amt`` a (1, 1) int32 array."""
+    ns = script_functions("probe_roll", {"make": None},
+                          dict(jax=jax, jnp=jnp, pl=interpret_pallas(), pltpu=pltpu))
+    return ns["make"](rows, cols, axis)
+
+
+def jax_lk_breakdown(hp: int, wp: int, n: int, win: int = 21, iters: int = 30,
+                     eps: float = 0.01, min_eig: float = 1e-4):
+    """K8, ``probe_lk_breakdown``'s ``variant_kernel`` through
+    ``run_variant``'s own ``pallas_call`` in interpret mode, with the
+    probe's module constants set at a small shape (``wp`` >= 256: its
+    canvas reads 256 columns). Returns ``run_variant(mode, rounds)``, cut to
+    return its jitted ``once(prow, pcol, grow, gcol, prev, next) -> (flow
+    (n, 2), ok (n, 1))``."""
+    block = load_script("lk_pallas_block")
+    ns = dict(jax=jax, jnp=jnp, pl=interpret_pallas(), pltpu=pltpu, B=block, hp=hp,
+              wp=wp, N=n, P=-(-(win + 3) // 8) * 8, BLK=block.BLK, win=win,
+              iters=iters, eps=eps, min_eig=min_eig)
+    script_functions("probe_lk_breakdown",
+                     {"variant_kernel": None, "run_variant": "once"}, ns)
+    return ns["run_variant"]
