@@ -10,10 +10,14 @@ Phases (each prints one line; any failure exits non-zero):
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``;
   2. build the kernels (``csrc/*.cu``, one nvcc per source, all at once);
   3. K1 (``csrc/extract_windows.cu``) against its plain PyTorch version at
-     the LK path's shapes and at ORB's 3x3 subpixel reads: max abs error 0;
-  4. K2 (``csrc/extract_patches.cu``) against its plain version at the 8
-     ORB level shapes with the level budgets (P = 39): max abs error 0, and
-     the BRIEF bits of both patch sets equal;
+     the LK path's shapes, ORB's 3x3 subpixel reads, the XLA tracker's
+     64x64 / 36x36 windows, and ragged N (0, 1, 7, 1023) at S = 24, (5, 7)
+     and (64, 36): max abs error 0;
+  4. K2 (``csrc/extract_patches.cu``, on the unpadded image) against its
+     plain versions (on the edge-padded image, and with clamped taps) at the
+     8 ORB level shapes with the level budgets (P = 39), P = 31, and centres
+     up to 2 px outside the image on all four sides with N = 1, 7, 130: max
+     abs error 0, and the BRIEF bits of the P = 39 patch sets equal;
   5. K3 and K4 (``csrc/lk_level.cu``) against their plain versions at the
      two padded LK level shapes, N = 1024, on a textured pair with a known
      subpixel shift, random guesses and a quarter of the points inactive:
@@ -57,10 +61,13 @@ Phases (each prints one line; any failure exits non-zero):
      K7 envelope), each run with every count set to 0 just before and read
      just after; then their own timings (K3-K6 back to back and in a CUDA
      graph of 20 calls, the K8 split in graphs of 30 calls);
- 14. K1-K7 timed with CUDA events against their plain versions, K3-K6 also
-     inside a CUDA graph of 30 calls (device time per call, without the
-     wrappers' host time), and the library calls: ``F.grid_sample`` for K1
-     and K2, ``torch.roll`` for K7;
+ 14. K1-K7 timed with CUDA events against their plain versions, and inside
+     a CUDA graph of 30 calls (device time per call, without the wrappers'
+     host time); K1, K2 and K7 against their library calls timed the same
+     two ways (``F.grid_sample`` nearest for K1; bilinear with border
+     padding on the unpadded image for K2; ``torch.roll`` for K7,
+     ``probes/patch_timing.py``), with the wrappers' host time per call and,
+     on a line of its own, K1's wrapper split piece by piece;
  15. the kernel report.
 The launch counts hold without a reinit; each slice's run sets every
 count to 0 just before ``run_chunked`` and reads them just after. The
@@ -103,6 +110,7 @@ ORB_LEVELS = [(384, 1280), (320, 1067), (267, 889), (222, 741), (185, 617),
 ORB_BUDGETS = [445, 371, 309, 257, 214, 179, 149, 124]
 ORB_FEATURES, ORB_PATCH = 2048, 39
 ORB_LAUNCHES_PER_FRAME = 16  # per kernel: 8 levels x 2 images
+K1_RAGGED, K2_RAGGED = (0, 1, 7, 1023), (1, 7, 130)  # ragged point counts
 # H100 SXM datasheet peaks: HBM bytes/s, float32 FLOP/s.
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 
@@ -114,32 +122,6 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
-
-
-def k1_inputs(torch, hp, wp, S, seed, n=N_POINTS):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    img = torch.rand((hp, wp), generator=g, device="cuda") * 255
-    rows = torch.randint(0, hp - S + 1, (n,), generator=g, device="cuda")
-    cols = torch.randint(0, wp - S + 1, (n,), generator=g, device="cuda")
-    corners = torch.stack([rows, cols], -1).to(torch.int32)
-    # The extremes of the pre-clipped range, and a few outside it (clamped).
-    corners[:6] = torch.tensor([[0, 0], [hp - S, wp - S], [-3, wp + 5],
-                                [hp + 2, -1], [0, wp - S], [hp - S, 0]],
-                               dtype=torch.int32, device="cuda")
-    return img.contiguous(), corners.contiguous()
-
-
-def k2_inputs(torch, h, w, n, seed):
-    """A random level image and n centres where ORB puts them (inside the
-    EDGE = 19 border), plus the image corners."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    img = torch.rand((h, w), generator=g, device="cuda") * 255
-    lo = torch.tensor([19.0, 19.0], device="cuda")
-    span = torch.tensor([w - 39.0, h - 39.0], device="cuda")
-    xy = lo + torch.rand((n, 2), generator=g, device="cuda") * span
-    xy[:4] = torch.tensor([[0.0, 0.0], [w - 1.0, h - 1.0], [w - 1.0, 0.0],
-                           [0.0, h - 1.0]], device="cuda")
-    return img, xy
 
 
 def textured_pair(torch, hp, wp, shift_xy, seed):
@@ -347,7 +329,6 @@ def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     # 1. Device -----------------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: "
@@ -367,9 +348,10 @@ def main() -> int:
     from stereo_visual_odometry_tpu_torch.ops import (lk_block, lk_cell, lk_v1, lk_v2,
                                                       native, orb, patch, roll)
     from stereo_visual_odometry_tpu_torch.probes import lk_block as probe_block
-    from stereo_visual_odometry_tpu_torch.probes import lk_breakdown
+    from stereo_visual_odometry_tpu_torch.probes import lk_breakdown, patch_timing
     from stereo_visual_odometry_tpu_torch.probes import roll as probe_roll
     from stereo_visual_odometry_tpu_torch.probes import timing
+    k1_inputs, k2_inputs = patch_timing.k1_inputs, patch_timing.k2_inputs
     from stereo_visual_odometry_tpu_torch.utils import synthetic, trajectory
     from stereo_visual_odometry_tpu_torch.utils.config import CameraConfig, RunConfig
 
@@ -405,50 +387,57 @@ def main() -> int:
     orb_maps = [(-(-h // 32) * 32, -(-w // 32) * 32, 3, n)
                 for (h, w), n in zip(ORB_LEVELS, ORB_BUDGETS)]
     k1_cases = [(hp, wp, S, N_POINTS) for hp, wp, S in K1_SHAPES] + orb_maps
+    # The XLA tracker's search windows, (64, 64) at radius 20 and (36, 36) at
+    # 6; ragged N and non-square windows (a quad that breaks a row, the
+    # scalar path, a window over a whole CTA).
+    k1_cases += [(406, 1302, (64, 64), N_POINTS), (406, 1302, (36, 36), N_POINTS)]
+    k1_cases += [(408, 1408, S, n) for S in (24, (5, 7), (64, 36)) for n in K1_RAGGED]
     for i, (hp, wp, S, n) in enumerate(k1_cases):
-        img, corners = k1_inputs(torch, hp, wp, S, seed=i, n=n)
+        img, corners = k1_inputs(hp, wp, S, seed=i, n=n)
         got = patch.extract_windows_int(img, corners, S)
         torch.cuda.synchronize()
         want = patch.extract_windows_int_reference(img, corners, S)
-        check(got.shape == want.shape == (n, S, S), f"K1 shape {got.shape}")
-        err = float((got - want).abs().max())
-        check(err == 0.0, f"K1 disagrees with its plain version at {(hp, wp, S)}: "
+        sh, sw = (S, S) if isinstance(S, int) else S
+        check(got.shape == want.shape == (n, sh, sw), f"K1 shape {got.shape}")
+        err = float((got - want).abs().max()) if n else 0.0
+        check(err == 0.0, f"K1 disagrees with its plain version at {(hp, wp, S, n)}: "
               f"max abs err {err}")
         k1_err = max(k1_err, err)
-    # The XLA tracker's search windows, (64, 64) at radius 20 and (36, 36) at 6.
-    for size in (64, 36):
-        img, corners = k1_inputs(torch, 406, 1302, size, seed=size)
-        got = patch.extract_windows_int(img, corners, (size, size))
-        torch.cuda.synchronize()
-        err = float((got - patch.extract_windows_int_reference(img, corners, size))
-                    .abs().max())
-        check(err == 0.0, f"K1 disagrees with its plain version at S={size}: {err}")
     print(f"[3/15] K1 vs plain at {len(K1_SHAPES)} LK shapes (N={N_POINTS}), the XLA "
-          f"tracker's S=64/36 windows and {len(orb_maps)} ORB score maps (S=3, "
-          f"N=budget): max abs err {k1_err} (tolerance 0: a copy)")
+          f"tracker's S=64/36 windows, {len(orb_maps)} ORB score maps (S=3, "
+          f"N=budget) and N={K1_RAGGED} at S=24, (5, 7), (64, 36) ({len(k1_cases)} "
+          f"cases): max abs err {k1_err} (tolerance 0: a copy)")
 
-    # 4. K2 vs plain at the ORB level shapes --------------------------------
+    # 4. K2 vs plain at the ORB level shapes, P = 31, border cases ----------
     k2_err, bit_flips = 0.0, 0
-    pad = ORB_PATCH // 2 + 2
-    for lvl, ((h, w), n) in enumerate(zip(ORB_LEVELS, ORB_BUDGETS)):
-        img, xy = k2_inputs(torch, h, w, n, seed=100 + lvl)
-        got = patch.extract_patches(img, xy, ORB_PATCH)
+    k2_cases = [(h, w, n, ORB_PATCH, 0.0) for (h, w), n in zip(ORB_LEVELS, ORB_BUDGETS)]
+    k2_cases += [(h, w, n, 31, 0.0) for (h, w), n in zip(ORB_LEVELS[:2], ORB_BUDGETS[:2])]
+    k2_cases += [(h, w, n, P, 2.0) for (h, w) in ORB_LEVELS[::3] for P in (ORB_PATCH, 31)
+                 for n in K2_RAGGED]
+    for i, (h, w, n, P, outside) in enumerate(k2_cases):
+        img, xy = k2_inputs(h, w, n, seed=100 + i, outside=outside)
+        got = patch.extract_patches(img, xy, P)
         torch.cuda.synchronize()
-        want = patch.extract_patches_reference(patch.pad_edge(img, pad, pad, pad, pad),
-                                               xy, ORB_PATCH, pad)
-        check(got.shape == want.shape == (n, ORB_PATCH, ORB_PATCH),
-              f"K2 shape {got.shape}")
-        err = float((got - want).abs().max())
-        check(err == 0.0, f"K2 disagrees with its plain version at level {lvl} "
-              f"{(h, w)}: max abs err {err}")
+        p_pad = P // 2 + 2
+        want = patch.extract_patches_reference(patch.pad_edge(img, p_pad, p_pad, p_pad, p_pad),
+                                               xy, P, p_pad)
+        plain = patch.extract_patches_clamped(img, xy, P)
+        check(got.shape == want.shape == plain.shape == (n, P, P), f"K2 shape {got.shape}")
+        err = max(float((got - want).abs().max()), float((got - plain).abs().max()))
+        check(err == 0.0, f"K2 disagrees with its plain version at {(h, w, n, P, outside)}: "
+              f"max abs err {err}")
         k2_err = max(k2_err, err)
-        bits_k = orb.brief_bits_from_patches(got, None)
-        bits_p = orb.brief_bits_from_patches(want, None)
-        bit_flips += int((bits_k != bits_p).sum())
+        if P == ORB_PATCH:
+            bits_k = orb.brief_bits_from_patches(got, None)
+            bits_p = orb.brief_bits_from_patches(want, None)
+            bit_flips += int((bits_k != bits_p).sum())
     check(bit_flips == 0, f"K2's patches give {bit_flips} other BRIEF bits")
-    print(f"[4/15] K2 vs plain at {len(ORB_LEVELS)} ORB level shapes (P={ORB_PATCH}, "
-          f"N={ORB_BUDGETS}): max abs err {k2_err} (tolerance 0: the same products "
-          f"and fmas), BRIEF bits differing {bit_flips}")
+    print(f"[4/15] K2 vs plain (on the padded image, and the clamped plain version) at "
+          f"{len(ORB_LEVELS)} ORB level shapes (P={ORB_PATCH}, N={ORB_BUDGETS}), P=31 at "
+          f"levels 0-1, and centres up to 2 px outside on all four sides at levels 0, 3, "
+          f"6 for P={ORB_PATCH}/31 and N={K2_RAGGED} ({len(k2_cases)} cases): max abs err "
+          f"{k2_err} (tolerance 0: the same products and fmas), BRIEF bits differing "
+          f"{bit_flips}")
 
     # 5. K3 and K4 vs plain at the padded LK level shapes --------------------
     def level_cases():
@@ -632,51 +621,31 @@ def main() -> int:
                  (plain, plain_iters))]
         return min(runs[1], runs[2]), min(runs[0], runs[3])
 
-    # K1 at the LK path's S=24 shape, N=1024.
-    hp, wp, S = K1_SHAPES[0]
-    img, corners = k1_inputs(torch, hp, wp, S, seed=S)
-    c = corners.long().clamp(min=0)
-    c = torch.stack([c[:, 0].clamp(max=hp - S), c[:, 1].clamp(max=wp - S)], -1)
-    off = torch.arange(S, device="cuda", dtype=torch.float32)
-    gx = (c[:, 1, None, None] + off[None, None, :]).expand(-1, S, S) * (2.0 / (wp - 1)) - 1
-    gy = (c[:, 0, None, None] + off[None, :, None]).expand(-1, S, S) * (2.0 / (hp - 1)) - 1
-    grid1 = torch.stack([gx, gy], -1).reshape(1, -1, S, 2)
-    lib1 = lambda: F.grid_sample(img[None, None], grid1, mode="nearest",
-                                 align_corners=True)
-    k1_out = patch.extract_windows_int(img, corners, S)
-    k1_lib_diff = float((lib1().reshape(-1, S, S) - k1_out).abs().max())
-    k1_ms, k1_plain = timed(lambda: patch.extract_windows_int(img, corners, S),
-                            lambda: patch.extract_windows_int_reference(img, corners, S))
-    k1_lib = timing.events_ms(lib1)
+    def plain_time(fn, iters=200):
+        return min(timing.events_ms(fn, iters=iters) for _ in range(2))
+
+    # K1 (S=24, N=1024 on LK level 0), K2 (P=39, N=445 on ORB level 0) and K7
+    # ((128, 256), axis 0, amount 9), each back to back and in a CUDA graph of
+    # 30 calls against its library call, and the wrappers' host time
+    # (probes/patch_timing.py); the plain versions and the bounds here.
+    pt = patch_timing.measure(patch, roll, timing)
+    host = patch_timing.host_split(patch, native)
+    hp, wp, S = patch_timing.K1_SHAPE
+    img, corners = k1_inputs(hp, wp, S, seed=S)
+    _, c = patch_timing.k1_library(img, corners, S)
+    k1_plain = plain_time(lambda: patch.extract_windows_int_reference(img, corners, S))
     k1_bound, k1_by = bound(4 * (window_pixels(torch, hp, wp, c[:, 0], c[:, 1], S)
                                  + N_POINTS * S * S) + 8 * N_POINTS, 0)
 
-    # K2 at ORB level 0: 445 patches of 39x39 on the 384x1280 level.
-    (h, w), n = ORB_LEVELS[0], ORB_BUDGETS[0]
-    img, xy = k2_inputs(torch, h, w, n, seed=7)
-    img_pad = patch.pad_edge(img, pad, pad, pad, pad)
-    hp, wp = img_pad.shape
-    r = (ORB_PATCH - 1) / 2.0
-    ty, tx = (xy[:, 1] + pad) - r, (xy[:, 0] + pad) - r
-    iy = torch.floor(ty).long().clamp(0, hp - ORB_PATCH - 1)
-    ix = torch.floor(tx).long().clamp(0, wp - ORB_PATCH - 1)
-    off = torch.arange(ORB_PATCH, device="cuda", dtype=torch.float32)
-    gx = (tx[:, None, None] + off[None, None, :]).expand(-1, ORB_PATCH, ORB_PATCH)
-    gy = (ty[:, None, None] + off[None, :, None]).expand(-1, ORB_PATCH, ORB_PATCH)
-    grid2 = torch.stack([gx * (2.0 / (wp - 1)) - 1, gy * (2.0 / (hp - 1)) - 1],
-                        -1).reshape(1, -1, ORB_PATCH, 2)
-    lib2 = lambda: F.grid_sample(img_pad[None, None], grid2, mode="bilinear",
-                                 padding_mode="border", align_corners=True)
-    k2_out = patch.extract_patches(img, xy, ORB_PATCH)
-    k2_lib_diff = float((lib2().reshape(-1, ORB_PATCH, ORB_PATCH) - k2_out).abs().max())
-    k2_ms, k2_plain = timed(
-        lambda: patch.extract_patches(img, xy, ORB_PATCH),
-        lambda: patch.extract_patches_reference(patch.pad_edge(img, pad, pad, pad, pad),
-                                                xy, ORB_PATCH, pad))
-    k2_lib = timing.events_ms(lib2)
-    k2_bound, k2_by = bound(
-        4 * (window_pixels(torch, hp, wp, iy, ix, ORB_PATCH + 1) + n * ORB_PATCH ** 2)
-        + 8 * n, 11 * n * ORB_PATCH ** 2)
+    # K2 reads the unpadded level: the distinct pixels its clamped windows cover.
+    (h, w), n, P = patch_timing.K2_SHAPE, patch_timing.K2_N, patch_timing.K2_P
+    img, xy = k2_inputs(h, w, n, seed=7)
+    k2_plain = plain_time(lambda: patch.extract_patches_clamped(img, xy, P))
+    pad, r = P // 2 + 2, (P - 1) / 2.0
+    iy = torch.floor((xy[:, 1] + pad) - r).long().clamp(0, h + 2 * pad - P - 1) - pad
+    ix = torch.floor((xy[:, 0] + pad) - r).long().clamp(0, w + 2 * pad - P - 1) - pad
+    k2_bound, k2_by = bound(4 * (window_pixels(torch, h, w, iy, ix, P + 1) + n * P * P)
+                            + 8 * n, 11 * n * P * P)
 
     # K3-K6 at LK level 0: 1024 points on (408, 1408), eps 0.01; K6 on every
     # point (it takes no mask), the others on the 770 of phase 5's mask.
@@ -699,11 +668,9 @@ def main() -> int:
                                     hp, wp, "cell" if name in ("cell", "block") else "v1")
         lk_t[name] = (ms, plain_ms, b_ms, b_by, timing.graph_ms(call, calls=30))
 
-    # K7 at the probe's largest block: (128, 256), axis 0, amount 9.
-    x = torch.rand((probe_roll.ROWS[-1], probe_roll.COLS), device="cuda")
-    a = torch.tensor([[9]], dtype=torch.int32, device="cuda")
-    k7_ms, k7_plain = timed(lambda: roll.roll(x, a, 0), lambda: roll.roll_reference(x, a, 0))
-    k7_lib = timing.events_ms(lambda: torch.roll(x, -9, 0))
+    x = torch.rand(patch_timing.K7_SHAPE, device="cuda")
+    a = torch.tensor([[patch_timing.K7_AMOUNT]], dtype=torch.int32, device="cuda")
+    k7_plain = plain_time(lambda: roll.roll_reference(x, a, 0))
     k7_bound, k7_by = bound(2 * x.numel() * 4 + 4, 0)
 
     # K8 per variant at its probe's operating point (phase 12's inputs).
@@ -723,21 +690,32 @@ def main() -> int:
         k8_t[label] = {"ms": ms, "graph_ms": k8_graph[label], "plain_ms": plain_ms,
                        "bound_ms": b_ms, "bound_by": b_by}
     lk_name = {"cell": "K3", "v1": "K4", "block": "K5", "v2": "K6"}
-    print(f"[14/15] CUDA events, 200 calls each (5 for the LK plain versions), and CUDA "
-          f"graphs of 30 calls: K1 S={S} "
-          f"N={N_POINTS} on {K1_SHAPES[0][:2]}: kernel {k1_ms * 1e3:.2f} us, plain "
-          f"{k1_plain * 1e3:.2f} us, grid_sample(nearest) {k1_lib * 1e3:.2f} us (max diff "
-          f"{k1_lib_diff}), bound {k1_bound * 1e3:.3f} us ({k1_by}); K2 P={ORB_PATCH} "
-          f"N={n} on {(h, w)}: kernel {k2_ms * 1e3:.2f} us, plain {k2_plain * 1e3:.2f} us, "
-          f"grid_sample(bilinear) {k2_lib * 1e3:.2f} us (max diff {k2_lib_diff}), bound "
-          f"{k2_bound * 1e3:.3f} us ({k2_by}); " + "; ".join(
+    us = lambda t: f"{t * 1e3:.2f} us"
+
+    def patch_line(tag, key, plain, b_ms, b_by, lib):
+        t = pt[key]
+        return (f"{tag}: kernel {us(t['ms'])}, in a graph {us(t['graph_ms'])}, plain "
+                f"{us(plain)}, {lib} {us(t['library_ms'])}, in a graph "
+                f"{us(t['library_graph_ms'])} (max diff {t['library_max_diff']}), bound "
+                f"{b_ms * 1e3:.3f} us ({b_by}), wrapper host time {t['host_us']:.2f} us")
+
+    print("[14/15] host time per K1 wrapper call, us (perf_counter over "
+          f"{patch_timing.HOST_CALLS} calls, no sync): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
+    print(f"[14/15] CUDA events, {patch_timing.B2B_CALLS} calls each (5 for the LK plain "
+          f"versions), and CUDA graphs of {patch_timing.GRAPH_CALLS} calls: "
+          + patch_line(f"K1 S={S} N={N_POINTS} on {patch_timing.K1_SHAPE[:2]}", "k1",
+                       k1_plain, k1_bound, k1_by, "grid_sample(nearest)") + "; "
+          + patch_line(f"K2 P={P} N={n} on {(h, w)}", "k2", k2_plain, k2_bound, k2_by,
+                       "grid_sample(bilinear, border, unpadded)") + "; "
+          + "; ".join(
               f"{lk_name[k]} ({k}) N={N_POINTS} on {(hp, wp)} eps 0.01: "
               f"kernel {t[0] * 1e3:.2f} us, in a graph {t[4] * 1e3:.2f} us, plain "
               f"{t[1] * 1e3:.2f} us, bound {t[2] * 1e3:.3f} us ({t[3]}), no single "
-              f"library call" for k, t in lk_t.items())
-          + f"; K7 {tuple(x.shape)} axis 0 amount 9: kernel {k7_ms * 1e3:.2f} us, plain "
-          f"{k7_plain * 1e3:.2f} us, torch.roll {k7_lib * 1e3:.2f} us, bound "
-          f"{k7_bound * 1e3:.3f} us ({k7_by}); K8 on {tuple(probe_in['prev'].shape)}: "
+              f"library call" for k, t in lk_t.items()) + "; "
+          + patch_line(f"K7 {tuple(x.shape)} axis 0 amount {patch_timing.K7_AMOUNT}", "k7",
+                       k7_plain, k7_bound, k7_by, "torch.roll")
+          + f"; K8 on {tuple(probe_in['prev'].shape)}: "
           + ", ".join(f"{lb} kernel {t['ms'] * 1e3:.2f} us, in a graph "
                       f"{t['graph_ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
                       f"bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})"
@@ -746,15 +724,17 @@ def main() -> int:
     # 15. Kernel report ---------------------------------------------------
     src = "stereo_visual_odometry_tpu_torch/csrc/"
     by_path = lambda name: {p: ln[name] for p, ln in launches.items()}
+    timed_keys = ("ms", "graph_ms", "library_ms", "library_graph_ms", "library_max_diff")
+    patch_t = {key: {k: pt[key][k] for k in timed_keys} for key in pt}
     report = [
         {"name": "extract_windows_int", "route": "cuda", "source": src + "extract_windows.cu",
          "replaces": "stereo_visual_odometry_tpu/ops/patch_pallas.py:88",
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": k1_lib, "library_max_diff": k1_lib_diff},
+         "max_abs_err": k1_err, **patch_t["k1"], "plain_ms": k1_plain, "bound_ms": k1_bound,
+         "bound_by": k1_by, "host_us": pt["k1"]["host_us"]},
         {"name": "extract_patches", "route": "cuda", "source": src + "extract_patches.cu",
          "replaces": "stereo_visual_odometry_tpu/ops/patch_pallas.py:46",
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": k2_lib, "library_max_diff": k2_lib_diff},
+         "max_abs_err": k2_err, **patch_t["k2"], "plain_ms": k2_plain, "bound_ms": k2_bound,
+         "bound_by": k2_by, "host_us": pt["k2"]["host_us"]},
     ]
     for name, counter, source, replaces in (
             ("cell", "level_track_cell", "lk_level.cu",
@@ -770,8 +750,8 @@ def main() -> int:
                        "bound_by": b_by, "library_ms": None})
     report.append({"name": "roll", "route": "cuda", "source": src + "roll.cu",
                    "replaces": "scripts/probe_roll.py:12", "max_abs_err": k7_err,
-                   "ms": k7_ms, "plain_ms": k7_plain, "bound_ms": k7_bound,
-                   "bound_by": k7_by, "library_ms": k7_lib})
+                   **patch_t["k7"], "plain_ms": k7_plain, "bound_ms": k7_bound,
+                   "bound_by": k7_by, "host_us": pt["k7"]["host_us"]})
     # K8's headline numbers are the reload variant with 3 rounds (the JAX
     # probe's default); every variant is listed under "variants".
     report.append({"name": "level_track_block_split", "route": "cuda",

@@ -12,7 +12,8 @@ function's counterpart is found by name:
            the dynamic roll (K7)
   models/  the LK and ORB frontend steps and the ``System`` runtime
   utils/   config, synthetic sequences, trajectory metrics, JAX-state bridge
-  probes/  the JAX package's kernel probes, ``python -m``-runnable
+  probes/  the JAX package's kernel probes, ``python -m``-runnable, and the
+           patch kernels' timing against their library calls
   csrc/    CUDA C++ sources, built with nvcc at first use
 
 The port imports ``torch`` and never ``jax``.

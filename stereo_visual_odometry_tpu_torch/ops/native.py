@@ -4,8 +4,14 @@ Each source is compiled with ``nvcc`` for Hopper (``sm_90a``) into an object,
 all sources at once in parallel, and the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use (never at import), into ``_build/`` beside the package (listed in
-``.gitignore``), and is keyed by a hash of the sources so an edited kernel
-is rebuilt. There is no fallback: a failed build raises.
+``.gitignore``), and is keyed by a hash of the sources and their shared
+headers (``csrc/*.cuh``) so an edited kernel is rebuilt. There is no
+fallback: a failed build raises.
+
+The lean launch path of the patch kernels K1 and K2: ``entry`` resolves a C
+entry point once (later calls are a dict lookup, without ``lib``'s lock);
+their wrappers take the raw stream from ``patch.current_stream``. This
+module does not import torch.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ _LK_LEVEL = [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P, _I,
 _SIGNATURES = {
     # img, hp, wp, corners, n, Sh, Sw, out, device, stream
     "svo_extract_windows_int": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P],
-    # img, hp, wp, centers, n, P, pad, out, device, stream
+    # img, h, w (unpadded), centers, n, P, pad, out, device, stream
     "svo_extract_patches": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P],
     "svo_lk_level_cell": _LK_LEVEL,
     "svo_lk_level_v1": _LK_LEVEL,
@@ -46,6 +52,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_entries: dict[str, ctypes._CFuncPtr] = {}
 
 
 def _sources() -> list[Path]:
@@ -65,7 +72,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -123,3 +130,13 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
     return _lib
+
+
+def entry(name: str) -> ctypes._CFuncPtr:
+    """The C entry point ``name`` of the library (built and loaded on the
+    first call), resolved once."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries.setdefault(name, getattr(lib(), name))
+    return fn
+

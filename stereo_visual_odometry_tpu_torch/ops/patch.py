@@ -8,13 +8,19 @@
   ``extract_windows_int_reference``.
 * K2, port of ``patch_pallas.extract_patches``
   (``patch_pallas.py:186-237``): ORB's (N, P, P) bilinear patches at float
-  centres of an edge-padded image. CUDA kernel ``csrc/extract_patches.cu``,
-  plain version ``extract_patches_reference``.
+  centres, edge-replicated. CUDA kernel ``csrc/extract_patches.cu`` on the
+  unpadded image, whose clamped taps read what the edge-padded image holds;
+  plain version ``extract_patches_clamped`` (the kernel's index arithmetic),
+  held bit for bit to ``extract_patches_reference`` on the padded image.
 
 Each wrapper routes by the tensor's device: a CPU tensor runs the plain
 version, a CUDA tensor launches the hand-written kernel and adds one to the
 wrapper's ``launches``. There is no other route: a CUDA input that the kernel
-cannot take, or a failed build or launch, raises.
+cannot take, or a failed build or launch, raises. The checks are one
+boolean expression; the message is built only when it fails. The launch
+takes the lean path (``native.entry``, resolved once, and
+``current_stream``, the raw current stream): the wrappers run inside a CUDA
+graph capture unchanged.
 
 The JAX wrappers' BLK=8 point padding and Mosaic alignment pads are not
 needed here; any N works.
@@ -25,6 +31,19 @@ import torch
 import torch.nn.functional as F
 
 from . import native
+
+_F32, _I32 = torch.float32, torch.int32
+MAX_PATCH = 127  # the JAX kernel's limit: a (P+1)-wide window in 256 lanes
+
+
+def current_stream(index: int) -> int:
+    """PyTorch's current CUDA stream on device ``index`` as a raw
+    ``cudaStream_t``: inside ``torch.cuda.graph`` the capturing stream.
+
+    ``torch._C._cuda_getCurrentRawStream`` is private; it is the call
+    Triton's launcher makes, and it skips the ``torch.cuda.Stream`` object
+    that ``torch.cuda.current_stream(device).cuda_stream`` builds."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _window_shape(S) -> tuple[int, int]:
@@ -46,12 +65,12 @@ def extract_windows_int_reference(img_pad: torch.Tensor, corner_rc: torch.Tensor
     return img_pad[rows, cols]
 
 
-def _check(img_pad: torch.Tensor, corner_rc: torch.Tensor, S) -> None:
-    if img_pad.dtype != torch.float32 or img_pad.dim() != 2:
+def _reject(img_pad: torch.Tensor, corner_rc: torch.Tensor, S) -> None:
+    """Raise the error that K1's fast check found."""
+    if img_pad.dtype != _F32 or img_pad.dim() != 2:
         raise ValueError(f"img_pad must be 2-D float32, got {img_pad.dtype} "
                          f"{tuple(img_pad.shape)}")
-    if corner_rc.dtype != torch.int32 or corner_rc.dim() != 2 \
-            or corner_rc.shape[1] != 2:
+    if corner_rc.dtype != _I32 or corner_rc.dim() != 2 or corner_rc.shape[1] != 2:
         raise ValueError(f"corner_rc must be (N, 2) int32, got {corner_rc.dtype} "
                          f"{tuple(corner_rc.shape)}")
     if corner_rc.device != img_pad.device:
@@ -59,10 +78,7 @@ def _check(img_pad: torch.Tensor, corner_rc: torch.Tensor, S) -> None:
                          f"{corner_rc.device}")
     if not (img_pad.is_contiguous() and corner_rc.is_contiguous()):
         raise ValueError("img_pad and corner_rc must be contiguous")
-    hp, wp = img_pad.shape
-    sh, sw = _window_shape(S)
-    if not (1 <= sh <= hp and 1 <= sw <= wp):
-        raise ValueError(f"window S={S} does not fit the image {(hp, wp)}")
+    raise ValueError(f"window S={S} does not fit the image {tuple(img_pad.shape)}")
 
 
 def extract_windows_int(img_pad: torch.Tensor, corner_rc: torch.Tensor,
@@ -73,19 +89,26 @@ def extract_windows_int(img_pad: torch.Tensor, corner_rc: torch.Tensor,
     Corners follow the JAX contract (pre-clipped to [0, Hp-Sh] x [0, Wp-Sw]).
     ``extract_windows_int.launches`` counts the CUDA kernel's launches.
     """
-    _check(img_pad, corner_rc, S)
-    if img_pad.device.type == "cpu":
-        return extract_windows_int_reference(img_pad, corner_rc, S)
-    if img_pad.device.type != "cuda":
-        raise ValueError(f"unsupported device {img_pad.device}")
-    hp, wp = img_pad.shape
     sh, sw = _window_shape(S)
+    if not (img_pad.dtype == _F32 and corner_rc.dtype == _I32 and img_pad.dim() == 2
+            and corner_rc.dim() == 2 and corner_rc.shape[1] == 2
+            and corner_rc.device == img_pad.device and img_pad.is_contiguous()
+            and corner_rc.is_contiguous() and 0 < sh <= img_pad.shape[0]
+            and 0 < sw <= img_pad.shape[1]):
+        _reject(img_pad, corner_rc, S)
+    if not img_pad.is_cuda:
+        if img_pad.device.type != "cpu":
+            raise ValueError(f"unsupported device {img_pad.device}")
+        return extract_windows_int_reference(img_pad, corner_rc, S)
+    hp, wp = img_pad.shape
     n = corner_rc.shape[0]
-    out = torch.empty((n, sh, sw), dtype=torch.float32, device=img_pad.device)
-    stream = torch.cuda.current_stream(img_pad.device).cuda_stream
-    err = native.lib().svo_extract_windows_int(
+    out = img_pad.new_empty((n, sh, sw))
+    if n == 0:
+        return out
+    index = img_pad.get_device()
+    err = native.entry("svo_extract_windows_int")(
         img_pad.data_ptr(), hp, wp, corner_rc.data_ptr(), n, sh, sw, out.data_ptr(),
-        img_pad.device.index, stream)
+        index, current_stream(index))
     if err != 0:
         raise RuntimeError(f"extract_windows_int launch failed: cudaError {err}")
     extract_windows_int.launches += 1
@@ -123,29 +146,26 @@ def fma_f32(p: torch.Tensor, q: torch.Tensor, acc: torch.Tensor) -> torch.Tensor
     return bits.view(torch.float64).to(torch.float32)
 
 
-def extract_patches_reference(img_pad: torch.Tensor, centers_xy: torch.Tensor,
-                              P: int, pad: int) -> torch.Tensor:
-    """Plain version of K2 on a padded image, in the kernel's arithmetic.
-
-    Corner = centre + pad - (P-1)/2 in float32; its integer part is clipped
-    to [0, Hp-P-1] x [0, Wp-P-1]; one (fy, fx) per patch drives the 4-tap
-    blend of the (P+1)^2 window. The blend is the JAX kernel's
-    ``a(1-fy)(1-fx) + b(1-fy)fx + c fy(1-fx) + d fy fx`` with the last
-    three products fused into the running sum, as XLA contracts it when
-    the JAX package runs the kernel in interpret mode:
-    ``fma(d fy, fx, fma(c fy, 1-fx, fma(a (1-fy), 1-fx, b (1-fy) fx)))``.
-    """
-    hp, wp = img_pad.shape
+def _patch_corners(centers_xy: torch.Tensor, P: int, pad: int, hp: int, wp: int):
+    """K2's corner arithmetic in float32: corner = centre + pad - (P-1)/2, its
+    integer part clipped to [0, Hp-P-1] x [0, Wp-P-1] (padded extents), and
+    one (fy, fx) per patch. Returns (iy, ix, fy, fx)."""
     r = (P - 1) / 2.0
     ty = (centers_xy[:, 1] + pad) - r
     tx = (centers_xy[:, 0] + pad) - r
     iy = torch.clamp(torch.floor(ty).to(torch.int64), 0, hp - P - 1)
     ix = torch.clamp(torch.floor(tx).to(torch.int64), 0, wp - P - 1)
-    fy = (ty - iy.to(torch.float32))[:, None, None]
-    fx = (tx - ix.to(torch.float32))[:, None, None]
+    return iy, ix, ty - iy.to(torch.float32), tx - ix.to(torch.float32)
+
+
+def _blend(win: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor) -> torch.Tensor:
+    """The 4-tap blend of (N, P+1, P+1) windows with one (fy, fx) per patch,
+    in the kernel's order: ``a(1-fy)(1-fx) + b(1-fy)fx + c fy(1-fx) + d fy fx``
+    with the last three products fused into the running sum, as XLA
+    contracts the JAX kernel in interpret mode:
+    ``fma(d fy, fx, fma(c fy, 1-fx, fma(a (1-fy), 1-fx, b (1-fy) fx)))``."""
+    fy, fx = fy[:, None, None], fx[:, None, None]
     gy, gx = 1 - fy, 1 - fx
-    off = torch.arange(P + 1, device=img_pad.device)
-    win = img_pad[(iy[:, None] + off)[:, :, None], (ix[:, None] + off)[:, None, :]]
     a, b = win[:, :-1, :-1], win[:, :-1, 1:]
     c, d = win[:, 1:, :-1], win[:, 1:, 1:]
     acc = fma_f32(a * gy, gx.expand_as(a), (b * gy) * fx)
@@ -153,44 +173,75 @@ def extract_patches_reference(img_pad: torch.Tensor, centers_xy: torch.Tensor,
     return fma_f32(d * fy, fx.expand_as(d), acc)
 
 
-def _check_patches(img_pad: torch.Tensor, centers_xy: torch.Tensor, P: int) -> None:
-    if img_pad.dtype != torch.float32 or img_pad.dim() != 2:
-        raise ValueError(f"img_pad must be 2-D float32, got {img_pad.dtype} "
-                         f"{tuple(img_pad.shape)}")
-    if centers_xy.dtype != torch.float32 or centers_xy.dim() != 2 \
-            or centers_xy.shape[1] != 2:
+def extract_patches_reference(img_pad: torch.Tensor, centers_xy: torch.Tensor,
+                              P: int, pad: int) -> torch.Tensor:
+    """K2 on an edge-padded image: the (P+1)^2 window at the clipped integer
+    corner, read from ``img_pad``, blended with the patch's (fy, fx)."""
+    hp, wp = img_pad.shape
+    iy, ix, fy, fx = _patch_corners(centers_xy, P, pad, hp, wp)
+    off = torch.arange(P + 1, device=img_pad.device)
+    win = img_pad[(iy[:, None] + off)[:, :, None], (ix[:, None] + off)[:, None, :]]
+    return _blend(win, fy, fx)
+
+
+def extract_patches_clamped(img: torch.Tensor, centers_xy: torch.Tensor,
+                            P: int) -> torch.Tensor:
+    """Plain version of K2 in the kernel's index arithmetic: no padded copy;
+    window tap (u, v) of a patch reads ``img[clamp(iy+u-pad, 0, H-1),
+    clamp(ix+v-pad, 0, W-1)]``, which is the edge-padded image's pixel (iy+u,
+    ix+v), so it equals ``extract_patches_reference`` on the padded image."""
+    pad = P // 2 + 2
+    h, w = img.shape
+    iy, ix, fy, fx = _patch_corners(centers_xy, P, pad, h + 2 * pad, w + 2 * pad)
+    off = torch.arange(P + 1, device=img.device) - pad
+    rows = torch.clamp(iy[:, None] + off, 0, h - 1)
+    cols = torch.clamp(ix[:, None] + off, 0, w - 1)
+    return _blend(img[rows[:, :, None], cols[:, None, :]], fy, fx)
+
+
+def _reject_patches(img: torch.Tensor, centers_xy: torch.Tensor, P: int) -> None:
+    """Raise the error that K2's fast check found."""
+    if img.dtype != _F32 or img.dim() != 2:
+        raise ValueError(f"img must be 2-D float32, got {img.dtype} {tuple(img.shape)}")
+    if centers_xy.dtype != _F32 or centers_xy.dim() != 2 or centers_xy.shape[1] != 2:
         raise ValueError(f"centers_xy must be (N, 2) float32, got {centers_xy.dtype} "
                          f"{tuple(centers_xy.shape)}")
-    if centers_xy.device != img_pad.device:
-        raise ValueError(f"img on {img_pad.device}, centers_xy on {centers_xy.device}")
-    hp, wp = img_pad.shape
-    if not 1 <= P <= min(hp, wp) - 1:
-        raise ValueError(f"patch P={P} does not fit the padded image {(hp, wp)}")
+    if centers_xy.device != img.device:
+        raise ValueError(f"img on {img.device}, centers_xy on {centers_xy.device}")
+    if P > MAX_PATCH:
+        raise ValueError(f"patch P={P} is above the limit P <= {MAX_PATCH}")
+    pad = P // 2 + 2
+    raise ValueError(f"patch P={P} does not fit the padded image "
+                     f"{(img.shape[0] + 2 * pad, img.shape[1] + 2 * pad)}")
 
 
 def extract_patches(img: torch.Tensor, centers_xy: torch.Tensor, P: int) -> torch.Tensor:
     """Batched (N, P, P) subpixel patches around (N, 2) [x, y] centres of the
-    (H, W) float32 ``img``, edge-replicated (pad P//2 + 2, as JAX).
+    (H, W) float32 ``img``, edge-replicated (pad P//2 + 2, as JAX), for
+    1 <= P <= ``MAX_PATCH`` and P below the padded extents.
 
     ``extract_patches.launches`` counts the CUDA kernel's launches.
     """
     pad = P // 2 + 2
-    if img.dim() != 2:
-        raise ValueError(f"img must be 2-D, got {tuple(img.shape)}")
-    img_pad = pad_edge(img, pad, pad, pad, pad)
-    _check_patches(img_pad, centers_xy, P)
-    if img_pad.device.type == "cpu":
-        return extract_patches_reference(img_pad, centers_xy, P, pad)
-    if img_pad.device.type != "cuda":
-        raise ValueError(f"unsupported device {img_pad.device}")
-    centers_xy = centers_xy.contiguous()
-    hp, wp = img_pad.shape
+    if not (img.dtype == _F32 and centers_xy.dtype == _F32 and img.dim() == 2
+            and centers_xy.dim() == 2 and centers_xy.shape[1] == 2
+            and centers_xy.device == img.device and 1 <= P <= MAX_PATCH
+            and P < min(img.shape) + 2 * pad):
+        _reject_patches(img, centers_xy, P)
+    if not img.is_cuda:
+        if img.device.type != "cpu":
+            raise ValueError(f"unsupported device {img.device}")
+        return extract_patches_clamped(img, centers_xy, P)
+    img, centers_xy = img.contiguous(), centers_xy.contiguous()
+    h, w = img.shape
     n = centers_xy.shape[0]
-    out = torch.empty((n, P, P), dtype=torch.float32, device=img_pad.device)
-    stream = torch.cuda.current_stream(img_pad.device).cuda_stream
-    err = native.lib().svo_extract_patches(
-        img_pad.data_ptr(), hp, wp, centers_xy.data_ptr(), n, P, pad,
-        out.data_ptr(), img_pad.device.index, stream)
+    out = img.new_empty((n, P, P))
+    if n == 0:
+        return out
+    index = img.get_device()
+    err = native.entry("svo_extract_patches")(
+        img.data_ptr(), h, w, centers_xy.data_ptr(), n, P, pad, out.data_ptr(), index,
+        current_stream(index))
     if err != 0:
         raise RuntimeError(f"extract_patches launch failed: cudaError {err}")
     extract_patches.launches += 1

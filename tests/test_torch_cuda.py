@@ -25,7 +25,8 @@ import torch
 
 from stereo_visual_odometry_tpu_torch.models.frontend import VOConfig
 from stereo_visual_odometry_tpu_torch.models.system import System
-from stereo_visual_odometry_tpu_torch.ops import lk_block, lk_cell, lk_v1, lk_v2, patch, roll
+from stereo_visual_odometry_tpu_torch.ops import (lk_block, lk_cell, lk_v1, lk_v2, orb, patch,
+                                                  roll)
 from stereo_visual_odometry_tpu_torch.ops import pnp as tpnp
 from stereo_visual_odometry_tpu_torch.probes import lk_breakdown
 from stereo_visual_odometry_tpu_torch.probes import roll as probe_roll
@@ -60,6 +61,28 @@ def test_k1_kernel_matches_reference(hp, wp, S):
                                rtol=0, atol=0)
     empty = patch.extract_windows_int(img, c[:0], S)
     assert empty.shape == (0, S, S)
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 1023])
+@pytest.mark.parametrize("S", [24, 3, (5, 7), (64, 36)])
+def test_k1_kernel_ragged_and_non_square(S, n):
+    """Ragged N (a CTA's last group of points partly empty) and non-square
+    windows: quads that break a row (Sw = 7, 36), the scalar path (3x3,
+    5x7) and a window split over a whole CTA (64x36)."""
+    need_cuda()
+    sh, sw = (S, S) if isinstance(S, int) else S
+    hp, wp = 408, 1408
+    rng = np.random.default_rng(n + sh * sw)
+    img = torch.from_numpy((rng.random((hp, wp)) * 255).astype(np.float32)).cuda()
+    corners = np.stack([rng.integers(-4, hp - sh + 5, n),
+                        rng.integers(-4, wp - sw + 5, n)], -1).astype(np.int32)
+    c = torch.from_numpy(corners.reshape(n, 2)).cuda()
+    before = patch.extract_windows_int.launches
+    got = patch.extract_windows_int(img, c, S)
+    torch.cuda.synchronize()
+    assert got.shape == (n, sh, sw)
+    assert patch.extract_windows_int.launches == before + (n > 0)  # nothing to launch at 0
+    assert torch.equal(got, patch.extract_windows_int_reference(img, c, S))
 
 
 def test_k1_rejects_mixed_devices():
@@ -103,6 +126,112 @@ def test_k2_kernel_matches_reference_at_orb_shapes(level):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     empty = patch.extract_patches(img, xy[:0], 39)
     assert empty.shape == (0, 39, 39)
+
+
+@pytest.mark.parametrize("n", [1, 7, 445])
+@pytest.mark.parametrize("P", [39, 31])
+def test_k2_kernel_outside_and_ragged(P, n):
+    """Centres up to 2 px outside the image on all four sides, N = 1 and
+    ragged N: exact against the padded-image reference and the clamped plain
+    version, and (P = 39) the same BRIEF bits."""
+    need_cuda()
+    h, w = 267, 889  # ORB level 2: odd extents
+    rng = np.random.default_rng(P * n)
+    img = torch.from_numpy((rng.random((h, w)) * 255).astype(np.float32)).cuda()
+    out_lo = rng.uniform(-2, 0, (n, 2))
+    out_hi = rng.uniform(0, 2, (n, 2)) + [w - 1, h - 1]
+    inside = rng.uniform(0, 1, (n, 2)) * [w - 1, h - 1]
+    pick = rng.integers(0, 3, (n, 2))  # per axis: below 0, inside, beyond the last pixel
+    xy = np.where(pick == 0, out_lo, np.where(pick == 1, inside, out_hi))
+    xy[:4] = [[-2.0, -2.0], [w + 1.0, h + 1.0], [-2.0, h + 1.0], [w + 1.0, -2.0]][:n]
+    xy = torch.from_numpy(xy.astype(np.float32)).cuda()
+    before = patch.extract_patches.launches
+    got = patch.extract_patches(img, xy, P)
+    torch.cuda.synchronize()
+    assert patch.extract_patches.launches == before + 1
+    pad = P // 2 + 2
+    want = patch.extract_patches_reference(patch.pad_edge(img, pad, pad, pad, pad), xy, P,
+                                           pad)
+    assert torch.equal(got, want)
+    assert torch.equal(got, patch.extract_patches_clamped(img, xy, P))
+    if P == orb.DESC_PATCH:
+        assert torch.equal(orb.brief_bits_from_patches(got, None),
+                           orb.brief_bits_from_patches(want, None))
+
+
+def test_k2_launches_one_kernel_and_no_pad(monkeypatch):
+    """The CUDA route reads the unpadded image: no edge pad, no F.pad."""
+    need_cuda()
+
+    def no_pad(*args, **kwargs):
+        raise AssertionError("the CUDA route of extract_patches padded the image")
+
+    monkeypatch.setattr(patch, "pad_edge", no_pad)
+    monkeypatch.setattr(torch.nn.functional, "pad", no_pad)
+    img = torch.rand(320, 1067, device="cuda") * 255
+    xy = torch.rand(371, 2, device="cuda") * torch.tensor([1066.0, 319.0], device="cuda")
+    before = patch.extract_patches.launches
+    out = patch.extract_patches(img, xy, 39)
+    torch.cuda.synchronize()
+    assert out.shape == (371, 39, 39) and patch.extract_patches.launches == before + 1
+
+
+def test_k1_k2_in_a_cuda_graph_match_eager():
+    """Captured in a CUDA graph (the capture stream, outputs from the graph's
+    pool), K1 and K2 give the eager outputs bit for bit, also after the
+    inputs change in place between replays."""
+    need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    img1 = torch.rand(408, 1408, generator=g, device="cuda") * 255
+    corners = torch.randint(0, 380, (1024, 2), generator=g, device="cuda").to(torch.int32)
+    img2 = torch.rand(384, 1280, generator=g, device="cuda") * 255
+    xy = torch.rand(445, 2, generator=g, device="cuda") * torch.tensor(
+        [1279.0, 383.0], device="cuda")
+    calls = lambda: (patch.extract_windows_int(img1, corners, 24),
+                     patch.extract_windows_int(img1, corners, (5, 7)),
+                     patch.extract_patches(img2, xy, 39), patch.extract_patches(img2, xy, 31))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    for step in range(2):
+        if step:
+            img1.mul_(0.5).add_(3.0)
+            img2.copy_(img2.flip(1))
+            xy.add_(0.37)
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, calls()):
+            assert torch.equal(got, want)
+
+
+def test_k2_patch_size_limits():
+    """P = 127 (the JAX kernel's limit) takes opt-in shared memory and stays
+    exact; P = 128 raises, naming the limit; and the C entry refuses a
+    window above the card's opt-in shared memory."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.ops import native
+    img = torch.rand(150, 260, device="cuda") * 255
+    xy = torch.tensor([[0.0, 0.0], [130.4, 75.6], [259.0, 149.0], [-2.0, 151.0]],
+                      device="cuda")
+    P = patch.MAX_PATCH
+    pad = P // 2 + 2
+    want = patch.extract_patches_reference(patch.pad_edge(img, pad, pad, pad, pad), xy, P,
+                                           pad)
+    assert torch.equal(patch.extract_patches(img, xy, P), want)
+    with pytest.raises(ValueError, match=f"P <= {patch.MAX_PATCH}"):
+        patch.extract_patches(img, xy, P + 1)
+    big, P = torch.zeros(600, 600, device="cuda"), 300  # a 301^2 window: 362 KB
+    out = torch.empty(len(xy), P, P, device="cuda")
+    index = big.get_device()
+    err = native.entry("svo_extract_patches")(
+        big.data_ptr(), 600, 600, xy.data_ptr(), len(xy), P, P // 2 + 2, out.data_ptr(),
+        index, patch.current_stream(index))
+    assert err != 0
 
 
 def test_k2_rejects_mixed_devices():

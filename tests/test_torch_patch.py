@@ -15,7 +15,10 @@ exact float32 fma emulated in float64, ``patch.fma_f32``), and
 fractions, as ``tests/test_patch_pallas.py`` allows) where the two define
 the same patch. Shapes are
 ORB's at 128x320: P = 39 on level 0 and level 3 of the scale pyramid, and
-P = 31 (``ic_angle``).
+P = 31 (``ic_angle``). The CUDA kernel reads the unpadded image with clamped
+taps; its index arithmetic (``patch.extract_patches_clamped``, also the CPU
+route) equals K2 on the edge-padded image bit for bit, for odd and even
+extents and centres inside, on the border and up to 2 px outside.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -154,8 +157,48 @@ def test_k2_reference_on_padded_image_and_clip():
     assert torch.isfinite(far).all()
 
 
+def _centres_at(where, h, w, n=48, seed=0):
+    """Centres inside the image, on its border lines and up to 2 px outside
+    it, on all four sides."""
+    rng = np.random.default_rng(seed)
+    if where == "inside":
+        xy = np.stack([rng.uniform(21, w - 22, n), rng.uniform(21, h - 22, n)], -1)
+    elif where == "edge":
+        t = rng.uniform(0, 1, n)
+        side = np.arange(n) % 4
+        xy = np.stack([np.where(side == 0, 0.0, np.where(side == 1, w - 1.0, t * (w - 1))),
+                       np.where(side == 2, 0.0, np.where(side == 3, h - 1.0, t * (h - 1)))],
+                      -1)
+        xy[:4] = [[0.3, 0.0], [w - 1.3, h - 1.0], [0.0, h - 1.7], [w - 1.0, 0.5]]
+    else:  # up to 2 px outside: x in [-2, 0) or (w-1, w+1], y likewise
+        lo, hi = rng.uniform(-2, 0, (n, 2)), rng.uniform(0, 2, (n, 2)) + [w - 1, h - 1]
+        xy = np.where(np.arange(n)[:, None] % 2 == 0, lo, hi)
+        xy[1::4, 0] = rng.uniform(0, w - 1, len(xy[1::4]))  # outside on one axis only
+        xy[:4] = [[-2.0, -2.0], [w + 1.0, h + 1.0], [-2.0, h + 1.0], [w + 1.0, -2.0]]
+    return torch.from_numpy(xy.astype(np.float32))
+
+
+@pytest.mark.parametrize("where", ["inside", "edge", "outside"])
+@pytest.mark.parametrize("h,w", [(64, 96), (65, 97), (64, 97), (65, 96)])
+@pytest.mark.parametrize("P", [31, 39])
+def test_k2_clamped_taps_match_padded_reference(P, h, w, where):
+    """The kernel's index arithmetic (clamped taps on the unpadded image, as
+    ``csrc/extract_patches.cu`` reads it) against K2 on the edge-padded image:
+    bit for bit, also through the wrapper's CPU route."""
+    img = torch.from_numpy((np.random.default_rng(h * w + P).random((h, w)) * 255)
+                           .astype(np.float32))
+    xy = _centres_at(where, h, w, seed=P)
+    pad = P // 2 + 2
+    want = patch.extract_patches_reference(patch.pad_edge(img, pad, pad, pad, pad), xy, P,
+                                           pad)
+    got = patch.extract_patches_clamped(img, xy, P)
+    assert got.shape == (len(xy), P, P)
+    assert torch.equal(got, want)
+    assert torch.equal(patch.extract_patches(img, xy, P), want)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "centre_dtype", "centre_shape", "ndim",
-                                 "mixed_devices", "meta_device"])
+                                 "mixed_devices", "meta_device", "too_big"])
 def test_k2_wrapper_rejects_bad_inputs(bad):
     img = torch.zeros(32, 40)
     xy = torch.zeros(8, 2)
@@ -172,7 +215,9 @@ def test_k2_wrapper_rejects_bad_inputs(bad):
         img = img.to("meta")
     elif bad == "meta_device":  # neither the CPU nor a card: no route
         img, xy = img.to("meta"), xy.to("meta")
-    with pytest.raises(ValueError):
+    elif bad == "too_big":  # above the JAX kernel's limit, though it fits the image
+        img, P = torch.zeros(300, 300), patch.MAX_PATCH + 1
+    with pytest.raises(ValueError, match="limit" if bad == "too_big" else None):
         patch.extract_patches(img, xy, P)
 
 
@@ -180,3 +225,13 @@ def test_k2_cpu_call_does_not_count_as_launch():
     before = patch.extract_patches.launches
     out = patch.extract_patches(torch.rand(40, 50), torch.zeros(0, 2), 39)
     assert out.shape == (0, 39, 39) and patch.extract_patches.launches == before
+
+
+def test_patch_timing_probe_needs_a_gpu():
+    """The timing probe measures on a card only: without one it raises
+    before importing any package (no CPU numbers under device names)."""
+    from stereo_visual_odometry_tpu_torch.probes import patch_timing
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        patch_timing.main([])
