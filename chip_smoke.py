@@ -18,11 +18,14 @@ Phases (each prints one line; any failure exits non-zero):
      8 ORB level shapes with the level budgets (P = 39), P = 31, and centres
      up to 2 px outside the image on all four sides with N = 1, 7, 130: max
      abs error 0, and the BRIEF bits of the P = 39 patch sets equal;
-  5. K3 and K4 (``csrc/lk_level.cu``) against their plain versions at the
-     two padded LK level shapes, N = 1024, on a textured pair with a known
-     subpixel shift, random guesses and a quarter of the points inactive:
-     ok masks >= 99% equal, flows within 1e-3 px for >= 98% of the points
-     both keep and within eps for all (sums in another order);
+  5. K3 and K4 (``csrc/lk_level.cu``: one kernel per level call, the
+     wrappers' tail fused in) against their plain versions at the two padded
+     LK level shapes, N = 1024, on a textured pair with a known subpixel
+     shift, random guesses and a quarter of the points inactive: ok masks
+     >= 99% equal, flows within 1e-3 px for >= 98% of the points both keep
+     and within eps for all (sums in another order), the mean iterations and
+     reloads per tracked point within 0.01; with N = 0 empty outputs and no
+     launch counted;
   6. the LK slice: the 49-frame KITTI-shaped synthetic sequence (376x1241
      edge-padded to 384x1280, 1024 features) through
      ``System.run_chunked(chunk=16)``; ATE < 0.05 m, accept >= 0.95, K1
@@ -46,7 +49,7 @@ Phases (each prints one line; any failure exits non-zero):
      plain versions (K3's and K4's) on phase 5's inputs, K6 with every point
      tracked (it takes no mask): phase 5's criteria, and the mean iterations
      and reloads per tracked point within 0.01 of the plain version's; the
-     same against the K3 and K4 kernels;
+     same against the K3 and K4 kernels; N = 0 as in phase 5;
  11. K7 (``csrc/roll.cu``) against its plain version (``torch.roll``) over
      the roll probe's grid, (rows, 256) for rows 16..128 on both axes, with
      the amounts 0, 1, 3, 7, 9 / 100, -1, the axis length and + 5: max abs
@@ -54,7 +57,8 @@ Phases (each prints one line; any failure exits non-zero):
  12. K8 (``csrc/lk_block.cu``, ``svo_lk_block_split``) at the breakdown
      probe's operating point ((408, 1408), N = 1024): ``tmpl`` and
      ``reload`` (1 and 3 rounds) within 1e-4 relative of their plain
-     versions, ``full`` equal to K5's output bit for bit;
+     versions, ``full`` equal to K5's output bit for bit; N = 0 for each
+     variant as in phase 5;
  13. this slice's paths, the probes of ``stereo_visual_odometry_tpu_torch/
      probes``: ``lk_block`` (K5/K6 against K3/K4 on the probes' pair moved
      by (3, 2) px), ``lk_breakdown`` (K8's four variants) and ``roll`` (the
@@ -62,12 +66,19 @@ Phases (each prints one line; any failure exits non-zero):
      just after; then their own timings (K3-K6 back to back and in a CUDA
      graph of 20 calls, the K8 split in graphs of 30 calls);
  14. K1-K7 timed with CUDA events against their plain versions, and inside
-     a CUDA graph of 30 calls (device time per call, without the wrappers'
-     host time); K1, K2 and K7 against their library calls timed the same
-     two ways (``F.grid_sample`` nearest for K1; bilinear with border
-     padding on the unpadded image for K2; ``torch.roll`` for K7,
+     a CUDA graph of 30 calls (every node a wrapper call launches); K1, K2
+     and K7 against their library calls timed the same two ways
+     (``F.grid_sample`` nearest for K1; bilinear with border padding on the
+     unpadded image for K2; ``torch.roll`` for K7,
      ``probes/patch_timing.py``), with the wrappers' host time per call and,
-     on a line of its own, K1's wrapper split piece by piece;
+     on a line of its own, K1's wrapper split piece by piece; K3 and K4
+     through ``probes/lk_timing.py`` at two operating points, on a line of
+     their own: the kernel alone (the bare C entry) in a graph, its template
+     phase (``iters=0``) and one iteration, the wrapper's host time, the
+     iterations and reloads per point, and the share of reloads served from
+     the staged region by margin; and over every level call of the first 8
+     bench frames (recorded from ``System.run_chunked``), the kernel alone
+     in a graph, the iterations per tracked point and the staged share;
  15. the kernel report.
 The launch counts hold without a reinit; each slice's run sets every
 count to 0 just before ``run_chunked`` and reads them just after. The
@@ -87,8 +98,7 @@ ROOT = Path(__file__).resolve().parent
 PKG = ROOT / "stereo_visual_odometry_tpu_torch"
 
 # The bench sequence (bench.py:31-49): KITTI 00 geometry, seed 3.
-H_RAW, W_RAW, H, W = 376, 1241, 384, 1280
-N_FRAMES, FX, BASELINE = 49, 718.856, 0.537
+H, W, N_FRAMES = 384, 1280, 49
 K1_SHAPES = [  # (Hp, Wp, S) that the LK path hands K1 at 384x1280
     (408, 1408, 24), (408, 1408, 22),   # LK level 0, padded
     (216, 768, 24), (216, 768, 22),     # LK level 1, padded
@@ -124,40 +134,12 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def textured_pair(torch, hp, wp, shift_xy, seed):
-    """A smooth random texture (40 sinusoids, periods 6-40 px) and the same
-    texture moved by ``shift_xy`` px: an exact subpixel shift."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    k = 40
-    period = 6.0 + 34.0 * torch.rand(k, generator=g, device="cuda")
-    theta = 2 * torch.pi * torch.rand(k, generator=g, device="cuda")
-    phase = 2 * torch.pi * torch.rand(k, generator=g, device="cuda")
-    amp = 10.0 + 20.0 * torch.rand(k, generator=g, device="cuda")
-    wx, wy = 2 * torch.pi * torch.cos(theta) / period, 2 * torch.pi * torch.sin(theta) / period
-    y = torch.arange(hp, device="cuda", dtype=torch.float64)[:, None, None]
-    x = torch.arange(wp, device="cuda", dtype=torch.float64)[None, :, None]
-
-    def img(dx, dy):
-        arg = (wx.double() * (x - dx) + wy.double() * (y - dy) + phase.double())
-        return (128.0 + (amp.double() * torch.sin(arg)).sum(-1) / 4).float().contiguous()
-
-    return img(0.0, 0.0), img(*shift_xy)
-
-
-def lk_level_inputs(torch, hp, wp, seed, n=N_POINTS):
-    """Points inside a padded level, guesses within 1.5 px, ~25% inactive."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    span = torch.tensor([wp - 2 * PAD - 1.0, hp - 2 * PAD - 1.0], device="cuda")
-    pts = torch.rand((n, 2), generator=g, device="cuda") * span
-    guess = (torch.rand((n, 2), generator=g, device="cuda") - 0.5) * 3.0
-    active = torch.rand(n, generator=g, device="cuda") > 0.25
-    return pts.contiguous(), guess.contiguous(), active
-
-
-def lk_level_bound(torch, stats, corners, pts, active, hp, wp, kernel):
+def lk_level_bound(torch, stats, corners, pts, active, hp, wp, kernel, fused=False):
     """Least time of one K3/K4 call on these inputs: the distinct pixels of
     the template windows and of the windows the points visited (read once),
-    the inputs and outputs, against the flops the taken iterations need."""
+    the inputs and outputs, against the flops the taken iterations need.
+    ``fused``: K3/K4's contract (a bool mask; flow and a bool ok, no
+    statistics) rather than K5/K6's (float32 mask and ok, the statistics)."""
     r = (WIN - 1) // 2
     tp = pts[active] + PAD
     tr = torch.floor(tp[:, 1] - r - 1.0).long().clamp(0, hp - WIN - 3)
@@ -166,7 +148,8 @@ def lk_level_bound(torch, stats, corners, pts, active, hp, wp, kernel):
     pix = (window_pixels(torch, hp, wp, tr, tc, WIN + 3) +
            window_pixels(torch, hp, wp, corners[:, 0].long(), corners[:, 1].long(),
                          WIN + 1))
-    io = n * (8 + 8 + 4) + n * (8 + 4 + 8)  # pts, guess, active; flow, ok, counts
+    io = (n * (8 + 8 + 1) + n * (8 + 1) if fused  # pts, guess, active; flow, ok
+          else n * (8 + 8 + 4) + n * (8 + 4 + 8))  # ... and the counts
     ww = WIN * WIN
     flops = n_act * (11 * (WIN + 2) ** 2 + 14 * ww)  # blend, gradients, 5 dots
     iters, reloads = int(stats["iters"].sum()), int(stats["reloads"].sum())
@@ -250,6 +233,21 @@ def compare_levels(torch, tag, got, want, active, eps, shift, same_iters=False):
                   f"{it_p:.2f}/{rl_p:.2f}")
 
 
+def no_points(torch, tag, kernels, dtypes, call):
+    """A wrapper call with N = 0: empty outputs of the dtypes given, and no
+    launch counted by any kernel. Returns a description."""
+    before = {name: fn.launches for name, fn in kernels.items()}
+    outs = call()
+    torch.cuda.synchronize()
+    check(all(o.shape[0] == 0 for o in outs), f"{tag} at N = 0: shapes "
+          f"{[tuple(o.shape) for o in outs]}")
+    check([o.dtype for o in outs] == list(dtypes), f"{tag} at N = 0: dtypes "
+          f"{[o.dtype for o in outs]}, want {list(dtypes)}")
+    after = {name: fn.launches for name, fn in kernels.items()}
+    check(after == before, f"{tag} at N = 0 counted a launch: {after} against {before}")
+    return f"{tag} {[tuple(o.shape) for o in outs]}"
+
+
 def window_pixels(torch, hp, wp, rows, cols, size):
     """Distinct pixels of (hp, wp) that size x size windows at the corners
     (rows, cols) cover: the least the gather must read."""
@@ -265,14 +263,6 @@ def bound(bytes_moved, flops):
     """Least time on the card (ms) and what bounds it."""
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def bench_frames(synthetic, np):
-    seq = synthetic.render_sequence(n_frames=N_FRAMES, h=H_RAW, w=W_RAW, fx=FX,
-                                    baseline=BASELINE, n_points=9000, speed=1.1,
-                                    seed=3)
-    pad = lambda a: np.pad(a, ((0, 0), (0, H - H_RAW), (0, W - W_RAW)), mode="edge")
-    return pad(seq["images_l"]), pad(seq["images_r"]), seq["poses_gt"]
 
 
 def reset_launches(kernels) -> None:
@@ -345,15 +335,16 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from stereo_visual_odometry_tpu_torch.models import system as system_mod
     from stereo_visual_odometry_tpu_torch.models.frontend import VOConfig
-    from stereo_visual_odometry_tpu_torch.ops import (lk_block, lk_cell, lk_v1, lk_v2,
-                                                      native, orb, patch, roll)
+    from stereo_visual_odometry_tpu_torch.ops import (cuda_stream, lk_block, lk_cell, lk_v1,
+                                                      lk_v2, native, orb, patch, roll)
+    from stereo_visual_odometry_tpu_torch.ops import lk as lk_ops
     from stereo_visual_odometry_tpu_torch.probes import lk_block as probe_block
-    from stereo_visual_odometry_tpu_torch.probes import lk_breakdown, patch_timing
+    from stereo_visual_odometry_tpu_torch.probes import lk_breakdown, lk_timing, patch_timing
     from stereo_visual_odometry_tpu_torch.probes import roll as probe_roll
     from stereo_visual_odometry_tpu_torch.probes import timing
     k1_inputs, k2_inputs = patch_timing.k1_inputs, patch_timing.k2_inputs
-    from stereo_visual_odometry_tpu_torch.utils import synthetic, trajectory
-    from stereo_visual_odometry_tpu_torch.utils.config import CameraConfig, RunConfig
+    from stereo_visual_odometry_tpu_torch.utils import trajectory
+    from stereo_visual_odometry_tpu_torch.utils.config import RunConfig
 
     kernels = {"extract_windows_int": patch.extract_windows_int,
                "extract_patches": patch.extract_patches,
@@ -445,8 +436,8 @@ def main() -> int:
         pair, points, guesses and mask, at eps 0.01 and 0.03."""
         for lvl, (hp, wp) in enumerate(LK_PADDED):
             shift = (2.3 / 2 ** lvl, -1.4 / 2 ** lvl)
-            prev, nxt = textured_pair(torch, hp, wp, shift, seed=200 + lvl)
-            pts, guess, active = lk_level_inputs(torch, hp, wp, seed=300 + lvl)
+            prev, nxt = lk_timing.textured_pair(hp, wp, shift, seed=200 + lvl)
+            pts, guess, active = lk_timing.lk_level_inputs(hp, wp, seed=300 + lvl)
             for eps in (0.01, 0.03):
                 yield (hp, wp), shift, (prev, nxt, pts, guess), active, eps
 
@@ -457,16 +448,21 @@ def main() -> int:
             kw = dict(win=WIN, iters=30, eps=eps, search_radius=6, pad=PAD, active=active)
             dmax, line = compare_levels(
                 torch, f"{name} {shape} eps {eps}", level_call(torch, lk_fn[name], *args, **kw),
-                level_call(torch, plain_lk[name], *args, **kw), active, eps, shift)
+                level_call(torch, plain_lk[name], *args, **kw), active, eps, shift,
+                same_iters=True)
             lk_err[name] = max(lk_err[name], dmax)
             lines.append(line)
+    lk_bool = (torch.float32, torch.bool)
+    empty = [no_points(torch, name, kernels, lk_bool, lambda name=name: lk_fn[name](
+        args[0], args[1], args[2][:0], args[3][:0], pad=PAD, active=active[:0]))
+        for name in ("cell", "v1")]
     print(f"[5/15] K3 (cell) and K4 (v1) vs plain (kernel against plain), N={N_POINTS}, "
-          f"win {WIN}, 30 iters, {int(active.sum())} active: " + "; ".join(lines))
+          f"win {WIN}, 30 iters, {int(active.sum())} active: " + "; ".join(lines)
+          + f"; N = 0, empty and no launch counted: {', '.join(empty)}")
 
     # 6-7. The LK and ORB slices through System on cuda ---------------------
-    il, ir, poses_gt = bench_frames(synthetic, np)
+    il, ir, poses_gt, cam = lk_timing.bench_sequence(N_FRAMES)
     frames = list(zip(il, ir))
-    cam = CameraConfig(fx=FX, fy=FX, cx=W_RAW / 2, cy=H_RAW / 2, baseline=BASELINE)
     run = lambda vo, tag, fr=frames, gt=poses_gt, chunk=16: run_slice(
         np, torch, system_mod, trajectory, kernels, RunConfig(camera=cam, vo=vo), fr, gt,
         tag, chunk=chunk)
@@ -529,9 +525,12 @@ def main() -> int:
                 same_iters=True)
             lk_err[name] = max(lk_err[name], dmax)
             lines.append(f"{line}; {line_old}")
+    empty = [no_points(torch, name, kernels, lk_bool, lambda name=name: lk_fn[name](
+        args[0], args[1], args[2][:0], args[3][:0], pad=PAD)) for name in ("block", "v2")]
     print(f"[10/15] K5 (block) and K6 (v2) vs plain (K3's and K4's plain versions) and "
           f"vs the K3/K4 kernels, N={N_POINTS}, win {WIN}, 30 iters, K5 with phase 5's "
-          f"mask, K6 on every point: " + "; ".join(lines))
+          f"mask, K6 on every point: " + "; ".join(lines)
+          + f"; N = 0, empty and no launch counted: {', '.join(empty)}")
 
     # 11. K7 vs plain over the roll probe's grid -------------------------------
     k7_err, k7_cases = 0.0, 0
@@ -568,13 +567,19 @@ def main() -> int:
               f"by {k8[label]['rel_err']} relative")
     k8_err = max(k8[lb]["abs_err"] for lb in split_labels)
     both = (k8_full[1] > 0) & (k8_full_plain[1] > 0)
+    empty = [no_points(torch, label, kernels, (torch.float32,) * 3,
+                       lambda label=label: lk_block.level_track_block_split(
+                           probe_in["prev"], probe_in["next"], probe_in["pts"][:0],
+                           probe_block.PAD, *lk_breakdown.VARIANTS[label]))
+             for label in lk_breakdown.VARIANTS]
     print(f"[12/15] K8 vs plain at {tuple(probe_in['prev'].shape)}, N={len(probe_in['pts'])}: "
           + ", ".join(f"{lb} relative error {k8[lb]['rel_err']:.2e} (max abs "
                       f"{k8[lb]['abs_err']:.3g})" for lb in split_labels)
           + f" (tolerance 1e-4: sums in another order); full equals K5's output bit for "
           f"bit (against K5's plain version: ok agree "
           f"{float((k8_full[1] == k8_full_plain[1]).float().mean()):.4f}, max flow diff "
-          f"{float((k8_full[0] - k8_full_plain[0]).abs().amax(-1)[both].max()):.2e} px)")
+          f"{float((k8_full[0] - k8_full_plain[0]).abs().amax(-1)[both].max()):.2e} px); "
+          f"N = 0, empty and no launch counted: {', '.join(empty)}")
 
     # 13. This slice's paths: the probes, then their own timings ---------------
     probe_paths = {
@@ -629,7 +634,7 @@ def main() -> int:
     # 30 calls against its library call, and the wrappers' host time
     # (probes/patch_timing.py); the plain versions and the bounds here.
     pt = patch_timing.measure(patch, roll, timing)
-    host = patch_timing.host_split(patch, native)
+    host = patch_timing.host_split(patch, native, cuda_stream.current_stream)
     hp, wp, S = patch_timing.K1_SHAPE
     img, corners = k1_inputs(hp, wp, S, seed=S)
     _, c = patch_timing.k1_library(img, corners, S)
@@ -648,10 +653,18 @@ def main() -> int:
                             + 8 * n, 11 * n * P * P)
 
     # K3-K6 at LK level 0: 1024 points on (408, 1408), eps 0.01; K6 on every
-    # point (it takes no mask), the others on the 770 of phase 5's mask.
+    # point (it takes no mask), the others on the 770 of phase 5's mask. K3
+    # and K4 through probes/lk_timing.py (also at the lk_block probe's
+    # operating point): the kernel alone, its template phase and one
+    # iteration in a graph, the wrapper in a graph, back to back and on the
+    # host, iterations, reloads and the staged share; K5 and K6 here.
+    lkt = lk_timing.measure({"lk_cell": lk_cell, "lk_v1": lk_v1, "native": native,
+                             "make_inputs": probe_block.make_inputs}, timing,
+                            patch_timing.host_us, cuda_stream.current_stream,
+                            bench=(frames[:lk_timing.BENCH_FRAMES], cam))
     hp, wp = LK_PADDED[0]
-    prev, nxt = textured_pair(torch, hp, wp, (2.3, -1.4), seed=200)
-    pts, guess, active = lk_level_inputs(torch, hp, wp, seed=300)
+    prev, nxt = lk_timing.textured_pair(hp, wp, lk_timing.SHIFT, seed=200)
+    pts, guess, active = lk_timing.lk_level_inputs(hp, wp, seed=300)
     lk_t = {}
     for name in lk_fn:
         kw = dict(win=WIN, iters=30, eps=0.01, search_radius=6, pad=PAD)
@@ -661,12 +674,18 @@ def main() -> int:
         lk_fn[name](prev, nxt, pts, guess, stats=st_k, **kw)
         plain_lk[name](prev, nxt, pts, guess, stats=st_p, **kw)
         call = lambda name=name, kw=kw: lk_fn[name](prev, nxt, pts, guess, **kw)
-        ms, plain_ms = timed(call, lambda name=name, kw=kw: plain_lk[name](
-            prev, nxt, pts, guess, **kw), plain_iters=5)
+        plain = lambda name=name, kw=kw: plain_lk[name](prev, nxt, pts, guess, **kw)
         b_ms, b_by = lk_level_bound(torch, st_k, st_p["corners"], pts,
                                     active if masked[name] else torch.ones_like(active),
-                                    hp, wp, "cell" if name in ("cell", "block") else "v1")
-        lk_t[name] = (ms, plain_ms, b_ms, b_by, timing.graph_ms(call, calls=30))
+                                    hp, wp, "cell" if name in ("cell", "block") else "v1",
+                                    fused=name in ("cell", "v1"))
+        if name in lkt["smoke"]:
+            lk_t[name] = dict(lkt["smoke"][name], plain_ms=plain_time(plain, iters=5))
+        else:
+            ms, plain_ms = timed(call, plain, plain_iters=5)
+            lk_t[name] = {"ms": ms, "plain_ms": plain_ms,
+                          "graph_ms": timing.graph_ms(call, calls=30)}
+        lk_t[name].update(bound_ms=b_ms, bound_by=b_by)
 
     x = torch.rand(patch_timing.K7_SHAPE, device="cuda")
     a = torch.tensor([[patch_timing.K7_AMOUNT]], dtype=torch.int32, device="cuda")
@@ -699,6 +718,20 @@ def main() -> int:
                 f"{us(t['library_graph_ms'])} (max diff {t['library_max_diff']}), bound "
                 f"{b_ms * 1e3:.3f} us ({b_by}), wrapper host time {t['host_us']:.2f} us")
 
+    print("[14/15] K3/K4 (probes/lk_timing.py; graphs of "
+          f"{lk_timing.GRAPH_CALLS} calls; staged share at margins {lk_timing.MARGINS}, "
+          f"shipped {lk_v1.STAGE_MARGIN}): " + "; ".join(
+              f"{lk_name[k]} {point}: kernel alone {us(t['kernel_graph_ms'])}, template "
+              f"phase {us(t['template_graph_ms'])}, one iteration "
+              f"{us(t['one_iter_graph_ms'])}, wrapper in a graph {us(t['graph_ms'])}, b2b "
+              f"{us(t['ms'])}, host {t['host_us']:.2f} us, iterations {t['iters']}, reloads "
+              f"{t['reloads']}, staged share {t['staged_share']}"
+              for point in ("smoke", "probe") for k, t in lkt[point].items())
+          + f"; on the first {lk_timing.BENCH_FRAMES} bench frames: " + "; ".join(
+              f"{lk_name[k]} {b['calls']} calls, kernel alone {us(b['kernel_graph_ms'])} "
+              f"(largest {us(b['kernel_graph_ms_max'])}), iterations {b['iters']}, staged "
+              f"share {b['staged_share']}"
+              for k, b in lkt["bench"].items()))
     print("[14/15] host time per K1 wrapper call, us (perf_counter over "
           f"{patch_timing.HOST_CALLS} calls, no sync): "
           + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
@@ -710,9 +743,9 @@ def main() -> int:
                        "grid_sample(bilinear, border, unpadded)") + "; "
           + "; ".join(
               f"{lk_name[k]} ({k}) N={N_POINTS} on {(hp, wp)} eps 0.01: "
-              f"kernel {t[0] * 1e3:.2f} us, in a graph {t[4] * 1e3:.2f} us, plain "
-              f"{t[1] * 1e3:.2f} us, bound {t[2] * 1e3:.3f} us ({t[3]}), no single "
-              f"library call" for k, t in lk_t.items()) + "; "
+              f"kernel {us(t['ms'])}, in a graph {us(t['graph_ms'])}, plain "
+              f"{us(t['plain_ms'])}, bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}), no "
+              f"single library call" for k, t in lk_t.items()) + "; "
           + patch_line(f"K7 {tuple(x.shape)} axis 0 amount {patch_timing.K7_AMOUNT}", "k7",
                        k7_plain, k7_bound, k7_by, "torch.roll")
           + f"; K8 on {tuple(probe_in['prev'].shape)}: "
@@ -743,11 +776,11 @@ def main() -> int:
              "stereo_visual_odometry_tpu/ops/lk_pallas.py:46"),
             ("block", "level_track_block", "lk_block.cu", "scripts/lk_pallas_block.py:58"),
             ("v2", "level_track_v2", "lk_block.cu", "scripts/lk_pallas_v2.py:43")):
-        ms, plain_ms, b_ms, b_by, graph = lk_t[name]
         report.append({"name": counter, "route": "cuda", "source": src + source,
-                       "replaces": replaces, "max_abs_err": lk_err[name], "ms": ms,
-                       "graph_ms": graph, "plain_ms": plain_ms, "bound_ms": b_ms,
-                       "bound_by": b_by, "library_ms": None})
+                       "replaces": replaces, "max_abs_err": lk_err[name], **lk_t[name],
+                       "library_ms": None})
+        if name in lkt["bench"]:
+            report[-1].update(probe_point=lkt["probe"][name], bench_point=lkt["bench"][name])
     report.append({"name": "roll", "route": "cuda", "source": src + "roll.cu",
                    "replaces": "scripts/probe_roll.py:12", "max_abs_err": k7_err,
                    **patch_t["k7"], "plain_ms": k7_plain, "bound_ms": k7_bound,

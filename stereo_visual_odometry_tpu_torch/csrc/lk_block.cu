@@ -26,8 +26,8 @@
 //
 // What bounds it on Hopper: neither bytes nor flops (a level call at N=1024
 // moves ~3 MB of distinct pixels and does ~50 MFLOP); the cost is each
-// point's serial chain of reductions. K3/K4 spend two CTA barriers and a
-// shared-memory round trip on every reduction of their 128-thread CTA. Here a
+// point's serial chain of reductions. K3/K4 spend CTA barriers and a
+// shared-memory round trip on every reduction of their two-warp CTA. Here a
 // warp owns a point, so:
 //   * every reduction is a __shfl_xor_sync butterfly, after which every lane
 //     holds bit-identical totals; each loop condition is then uniform within
@@ -36,7 +36,7 @@
 //     (window buffer, template field, T, Ix, Iy: (win+3)^2 + (win+2)^2 +
 //     3 win^2 floats, 9.7 KB at win = 21);
 //   * the price: a lane handles ceil(441/32) = 14 window elements per
-//     reduction, against 4 for K3/K4's 128 threads;
+//     reduction, against 7 for K3/K4's 64 threads;
 //   * kPointsPerCta = 4: 39 KB of shared memory per CTA (no opt-in above
 //     48 KB at win = 21), and N = 1024 points make 256 CTAs that spread over
 //     all 132 SMs at once (8 points would make 128 CTAs and leave 4 SMs
@@ -53,6 +53,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "patch_common.cuh"
 
 namespace {
 
@@ -300,16 +302,16 @@ int launch(const float* prev, const float* next, int hp, int wp, const float* pt
            const float* guess, const float* active, int n, int win, int iters,
            float eps2, float min_eig, int pad, int rounds, float* flow, float* ok,
            int32_t* stats, float* dots, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return 0;
+  svo::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const size_t per_point = static_cast<size_t>((win + 3) * (win + 3) +
                                                (win + 2) * (win + 2) + 3 * win * win);
   const size_t smem = kPointsPerCta * per_point * sizeof(float);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(lk_block_kernel<kMode>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        lk_block_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (n + kPointsPerCta - 1) / kPointsPerCta;

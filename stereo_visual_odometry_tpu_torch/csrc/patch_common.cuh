@@ -1,6 +1,5 @@
-// Shared by the patch kernels K1 (extract_windows.cu) and K2
-// (extract_patches.cu): a division-free walk over a row-major index, and the
-// device switch of their C entry points.
+// Shared by the kernels of csrc/: a division-free walk over a row-major
+// index (K1, K2, K3/K4), and the device switch of every C entry point.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -20,6 +20,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "patch_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -47,10 +49,10 @@ roll_kernel(const float* __restrict__ x, int rows, int cols,
 
 extern "C" int svo_roll(const float* x, int rows, int cols, const int32_t* amt, int axis,
                         float* out, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   if (rows <= 0 || cols <= 0 || (axis != 0 && axis != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  svo::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const int64_t total = static_cast<int64_t>(rows) * cols;
   const int64_t blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);

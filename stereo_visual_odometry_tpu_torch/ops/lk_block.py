@@ -18,8 +18,10 @@ CUDA kernel ``csrc/lk_block.cu`` (one warp per point; entries
 device as ``lk_v1.level_track_v1`` does (a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel, anything else raises) and count
 their launches in ``level_track_block.launches`` and
-``level_track_block_split.launches``. The JAX wrapper's N % 8 pad and the
-Mosaic shapes are not needed: any N works.
+``level_track_block_split.launches`` (none at N = 0). They launch through
+``lk_v1.launch``'s lean path with their own C contract (the raw delta and
+gate), finished here. The JAX wrapper's N % 8 pad and the Mosaic shapes are
+not needed: any N works.
 """
 from __future__ import annotations
 
@@ -76,7 +78,8 @@ def level_track_block(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
     flow_d, ok = lk_v1.launch("svo_lk_level_block", img_prev_pad, img_next_pad, pts,
                               guess, win, iters, eps, min_eig, pad, active, stats,
                               smem=smem_bytes(win))
-    level_track_block.launches += 1
+    if len(pts):
+        level_track_block.launches += 1
     return lk_v1.finish(guess, flow_d, ok > 0, search_radius)
 
 
@@ -124,7 +127,7 @@ def level_track_block_split_reference(img_prev_pad: torch.Tensor,
         ix = torch.clamp(torch.floor(px - r + rd).to(torch.int32), 0, wp - win - 1)
         W = patch.extract_windows_int_reference(img_next_pad, torch.stack([iy, ix], -1),
                                                 win + 1)
-        dots[:, rd] = torch.bmm(W.reshape(n, 1, -1), grad)[:, 0]
+        dots[:, rd] = torch.bmm(W.reshape(n, 1, (win + 1) ** 2), grad)[:, 0]
     extra = dots[:, -1, 0] if n_rounds else torch.zeros_like(acc)
     return torch.stack([acc + extra, acc], dim=-1), acc.clone(), dots
 
@@ -153,7 +156,8 @@ def level_track_block_split(img_prev_pad: torch.Tensor, img_next_pad: torch.Tens
                             guess, win, SPLIT_ITERS, SPLIT_EPS, min_eig, pad, None, None,
                             smem=smem_bytes(win),
                             extra=(SPLIT_MODES[mode], n_rounds, dots.data_ptr()))
-    level_track_block_split.launches += 1
+    if len(pts):
+        level_track_block_split.launches += 1
     return flow, ok, dots
 
 

@@ -17,7 +17,11 @@ as the JAX kernel.
 CUDA kernel ``csrc/lk_level.cu`` (entry ``svo_lk_level_cell``), plain version
 ``level_track_cell_reference``; the wrapper routes by device as
 ``lk_v1.level_track_v1`` does and counts its launches in
-``level_track_cell.launches``. The JAX kernel's stacked-image batch rule
+``level_track_cell.launches`` (none at N = 0). As K4's, the kernel does the
+JAX wrapper's tail (``lk_v1.finish``) itself, so a level call is one CUDA
+kernel: in the JAX package XLA fuses that tail into the level's jit, and
+eager PyTorch would pay six more launches for it. The JAX kernel's
+stacked-image batch rule
 (its ``custom_vmap``) is not ported here: multi-sequence batching is a
 later slice.
 """
@@ -44,8 +48,9 @@ def level_track_cell_reference(img_prev_pad: torch.Tensor, img_next_pad: torch.T
     (the same values a cached reload gives). A step counts as a reload for
     a point when its cell differs from the one of its previous iteration.
 
-    ``stats``, if given, receives per point ``iters`` and ``reloads``, and
-    ``corners``: the (M, 2) [row, col] corners of every window reloaded.
+    ``stats``, if given, receives per point ``iters`` and ``reloads``,
+    ``corners``: the (M, 2) [row, col] corners of every window reloaded, and
+    ``points``, the (M,) point of each.
     """
     n = pts.shape[0]
     hp, wp = img_prev_pad.shape
@@ -63,7 +68,8 @@ def level_track_cell_reference(img_prev_pad: torch.Tensor, img_next_pad: torch.T
     last = torch.full((n, 2), -1, dtype=i32, device=pts.device)
     n_it = torch.zeros(n, dtype=i32, device=pts.device)
     n_rel = torch.zeros(n, dtype=i32, device=pts.device)
-    corners = []
+    index = torch.arange(n, device=pts.device)
+    corners, owners = [], []
     for _ in range(iters):
         if not bool(run.any()):
             break
@@ -86,6 +92,7 @@ def level_track_cell_reference(img_prev_pad: torch.Tensor, img_next_pad: torch.T
         reload = run & torch.any(corner != last, dim=-1)
         if stats is not None:
             corners.append(corner[reload])
+            owners.append(index[reload])
         n_rel += reload.to(i32)
         n_it += run.to(i32)
         last = torch.where(run[:, None], corner, last)
@@ -93,9 +100,7 @@ def level_track_cell_reference(img_prev_pad: torch.Tensor, img_next_pad: torch.T
         vy = torch.where(run, vy + dy, vy)
         run = run & (dx * dx + dy * dy > eps * eps)
     if stats is not None:
-        stats.update(iters=n_it, reloads=n_rel,
-                     corners=torch.cat(corners) if corners else
-                     torch.zeros((0, 2), dtype=i32, device=pts.device))
+        stats.update(iters=n_it, reloads=n_rel, **lk_v1.reload_log(corners, owners, pts))
     return lk_v1.finish(guess, torch.stack([vx, vy], dim=-1), ok, search_radius)
 
 
@@ -112,10 +117,11 @@ def level_track_cell(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
         return level_track_cell_reference(img_prev_pad, img_next_pad, pts, guess, win,
                                           iters, eps, min_eig, search_radius, pad,
                                           active, stats)
-    flow_d, ok = lk_v1.launch("svo_lk_level_cell", img_prev_pad, img_next_pad, pts,
-                              guess, win, iters, eps, min_eig, pad, active, stats)
-    level_track_cell.launches += 1
-    return lk_v1.finish(guess, flow_d, ok > 0, search_radius)
+    out = lk_v1.launch("svo_lk_level_cell", img_prev_pad, img_next_pad, pts, guess, win,
+                       iters, eps, min_eig, pad, active, stats, search_radius)
+    if len(pts):
+        level_track_cell.launches += 1
+    return out
 
 
 level_track_cell.launches = 0

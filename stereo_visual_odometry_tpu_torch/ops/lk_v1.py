@@ -12,23 +12,65 @@ iterating after ``iters`` keeps its ok, as the JAX kernel.
 CUDA kernel ``csrc/lk_level.cu`` (entry ``svo_lk_level_v1``), plain version
 ``level_track_v1_reference``. The wrapper routes by the tensors' device as
 ``patch.py`` does: a CPU tensor runs the plain version, a CUDA tensor
-launches the kernel and adds one to ``level_track_v1.launches``, anything
-else raises. K3 (``lk_cell``) shares this module's checks and launcher.
+launches the kernel and adds one to ``level_track_v1.launches`` (N = 0
+launches and counts nothing), anything else raises. K3 (``lk_cell``) shares
+this module's checks and launcher.
+
+The kernel does the JAX wrapper's tail itself (``finish``: flow = guess +
+delta and ok = gate with the search-radius test), reads ``active`` as the
+caller's bool bytes and writes the statistics only when asked, so a level
+call is one CUDA kernel and nothing else: eager it saves six small
+launches, in a CUDA graph six nodes (PERF.md). ``finish`` stays the
+definition that the plain versions apply; the kernel does the same float
+add and compares, so its outputs are bit for bit those of its delta
+finished here.
 """
 from __future__ import annotations
 
 import torch
 
-from . import lk_dense, native, patch
+from . import cuda_stream, lk_dense, native, patch
 
 # Shared memory a CTA may hold on Hopper (opt-in maximum).
 _SMEM_LIMIT = 227 * 1024
+# csrc/lk_level.cu's threads per CTA and the margin (px) of the region of the
+# next image it stages around the window at the guess.
+THREADS, STAGE_MARGIN = 64, 7
+# The C entries that finish the level in the kernel (K3, K4). The others that
+# ``launch`` serves (K5, K6, K8) return the raw delta and a float32 ok, take
+# ``active`` as float32 and always write the statistics.
+_FINISHED = ("svo_lk_level_cell", "svo_lk_level_v1")
 
 
 def _smem_bytes(win: int) -> int:
-    """The kernel's shared memory: the (win+3)^2 window buffer, the
-    (win+2)^2 field, T/Ix/Iy and the reduction scratch (csrc/lk_level.cu)."""
-    return 4 * ((win + 3) ** 2 + (win + 2) ** 2 + 3 * win * win + 4 * 8)
+    """K3/K4's shared memory (csrc/lk_level.cu): the (win+3)^2 window
+    buffer, the staged region of the next image, the (win+2)^2 field,
+    T/Ix/Iy and the reduction scratch."""
+    side = win + 1 + 2 * STAGE_MARGIN
+    return 4 * ((win + 3) ** 2 + side * side + (win + 2) ** 2 + 3 * win * win
+                + (THREADS // 32) * 8)
+
+
+def staged_share(pts: torch.Tensor, guess: torch.Tensor, stats: dict, hp: int, wp: int,
+                 win: int = 21, pad: int = 0, margin: int = STAGE_MARGIN) -> float:
+    """The share of window reloads that K3/K4 read from the region they
+    stage (``margin`` px around the window at the guess, clipped to the
+    level), given a plain version's ``stats`` on the same inputs: its
+    ``corners`` and the ``points`` they belong to. 1.0 when nothing was
+    reloaded."""
+    corners, owners = stats["corners"], stats["points"]
+    if len(corners) == 0:
+        return 1.0
+    r = (win - 1) // 2
+    side = win + 1 + 2 * margin
+    rh, rw = min(side, hp), min(side, wp)
+    p, g = pts[owners] + pad, guess[owners]
+    ry = torch.clamp(torch.floor(p[:, 1] + g[:, 1] - r).long(), 0, hp - win - 1) - margin
+    rx = torch.clamp(torch.floor(p[:, 0] + g[:, 0] - r).long(), 0, wp - win - 1) - margin
+    ry, rx = torch.clamp(ry, 0, hp - rh), torch.clamp(rx, 0, wp - rw)
+    iy, ix = corners[:, 0].long(), corners[:, 1].long()
+    inside = ((iy >= ry) & (iy + win + 1 <= ry + rh) & (ix >= rx) & (ix + win + 1 <= rx + rw))
+    return float(inside.float().mean())
 
 
 def check_inputs(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
@@ -69,12 +111,19 @@ def finish(guess: torch.Tensor, flow_d: torch.Tensor, ok: torch.Tensor,
 def launch(entry: str, img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
            pts: torch.Tensor, guess: torch.Tensor, win: int, iters: int, eps: float,
            min_eig: float, pad: int, active: torch.Tensor | None,
-           stats: dict | None, smem: int | None = None, extra: tuple = ()):
-    """Launch an LK level kernel (``entry``: K3-K6, or K8 with its mode,
-    rounds and dots pointer as ``extra``, the C arguments after ``stats``) on
-    CUDA tensors. ``smem`` is the kernel's shared memory per CTA (K3/K4's by
-    default). Returns the raw (delta (N, 2), ok (N,) float32: the gate as 0/1,
-    or K8's checksum) and, into ``stats``, each point's iterations and window
+           stats: dict | None, search_radius: float = 0.0, smem: int | None = None,
+           extra: tuple = ()):
+    """Launch an LK level kernel on CUDA tensors through the lean path
+    (``native.entry``, the raw current stream); with N = 0 it launches
+    nothing and returns empty outputs.
+
+    ``entry`` is K3 or K4, which finish the level in the kernel and return
+    (flow (N, 2) = guess + delta, ok (N,) bool: the gate and the
+    ``search_radius`` test); or K5, K6, or K8 with its mode, rounds and dots
+    pointer as ``extra`` (the C arguments after ``stats``), which return the
+    raw (delta (N, 2), ok (N,) float32: the gate as 0/1, or K8's checksum).
+    ``smem`` is the kernel's shared memory per CTA (K3/K4's by default).
+    ``stats``, if given, receives each point's iterations and window
     reloads."""
     dev = img_prev_pad.device
     if dev.type != "cuda":
@@ -84,24 +133,42 @@ def launch(entry: str, img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
         raise ValueError(f"win={win} needs {smem} B of shared memory, "
                          f"more than the {_SMEM_LIMIT} B a CTA can hold")
     n = pts.shape[0]
-    hp, wp = img_prev_pad.shape
-    act = (torch.ones(n, dtype=torch.float32, device=dev) if active is None
-           else active.to(torch.float32))
-    flow_d = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    ok = torch.empty(n, dtype=torch.float32, device=dev)
-    counts = torch.empty((n, 2), dtype=torch.int32, device=dev)
-    prev, nxt = img_prev_pad.contiguous(), img_next_pad.contiguous()
-    pts, guess = pts.contiguous(), guess.contiguous()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(native.lib(), entry)(
-        prev.data_ptr(), nxt.data_ptr(), hp, wp, pts.data_ptr(), guess.data_ptr(),
-        act.data_ptr(), n, win, iters, eps * eps, min_eig, pad, flow_d.data_ptr(),
-        ok.data_ptr(), counts.data_ptr(), *extra, dev.index, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    finished = entry in _FINISHED
+    flow = pts.new_empty((n, 2))
+    ok = pts.new_empty(n, dtype=torch.bool if finished else torch.float32)
+    counts = (None if finished and stats is None
+              else pts.new_empty((n, 2), dtype=torch.int32))
     if stats is not None:
         stats["iters"], stats["reloads"] = counts[:, 0], counts[:, 1]
-    return flow_d, ok
+    if n == 0:
+        return flow, ok
+    prev, nxt = img_prev_pad.contiguous(), img_next_pad.contiguous()
+    pts, guess = pts.contiguous(), guess.contiguous()
+    if finished:
+        act = None if active is None else active.contiguous().data_ptr()
+        args = (act, n, win, iters, eps * eps, min_eig, pad, search_radius)
+    else:
+        act = (torch.ones(n, dtype=torch.float32, device=dev) if active is None
+               else active.to(torch.float32))
+        args = (act.data_ptr(), n, win, iters, eps * eps, min_eig, pad)
+    hp, wp = prev.shape
+    index = prev.get_device()
+    err = native.entry(entry)(
+        prev.data_ptr(), nxt.data_ptr(), hp, wp, pts.data_ptr(), guess.data_ptr(), *args,
+        flow.data_ptr(), ok.data_ptr(), None if counts is None else counts.data_ptr(),
+        *extra, index, cuda_stream.current_stream(index))
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    return flow, ok
+
+
+def reload_log(corners: list, owners: list, pts: torch.Tensor) -> dict:
+    """The plain versions' record of the windows they read: ``corners``
+    (M, 2) int32 and the ``points`` (M,) they belong to."""
+    if not corners:
+        return {"corners": torch.zeros((0, 2), dtype=torch.int32, device=pts.device),
+                "points": torch.zeros(0, dtype=torch.long, device=pts.device)}
+    return {"corners": torch.cat(corners), "points": torch.cat(owners)}
 
 
 def level_track_v1_reference(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
@@ -115,8 +182,8 @@ def level_track_v1_reference(img_prev_pad: torch.Tensor, img_next_pad: torch.Ten
     version; a point leaves the batch when its step is at most ``eps``.
 
     ``stats``, if given, receives per point ``iters`` and ``reloads`` (the
-    same here) and ``corners``, the (M, 2) [row, col] corners of every
-    window read from the next image.
+    same here), ``corners``, the (M, 2) [row, col] corners of every window
+    read from the next image, and ``points``, the (M,) point of each.
     """
     hp, wp = img_prev_pad.shape
     r = (win - 1) // 2
@@ -129,7 +196,8 @@ def level_track_v1_reference(img_prev_pad: torch.Tensor, img_next_pad: torch.Ten
     run = ok.clone()
     vy, vx = torch.zeros_like(py), torch.zeros_like(px)
     n_it = torch.zeros(pts.shape[0], dtype=i32, device=pts.device)
-    corners = []
+    index = torch.arange(pts.shape[0], device=pts.device)
+    corners, owners = [], []
     for _ in range(iters):
         if not bool(run.any()):
             break
@@ -150,11 +218,10 @@ def level_track_v1_reference(img_prev_pad: torch.Tensor, img_next_pad: torch.Ten
         n_it += run.to(i32)
         if stats is not None:
             corners.append(corner[run])
+            owners.append(index[run])
         run = run & (dx * dx + dy * dy > eps * eps)
     if stats is not None:
-        stats.update(iters=n_it, reloads=n_it.clone(),
-                     corners=torch.cat(corners) if corners else
-                     torch.zeros((0, 2), dtype=i32, device=pts.device))
+        stats.update(iters=n_it, reloads=n_it.clone(), **reload_log(corners, owners, pts))
     return finish(guess, torch.stack([vx, vy], dim=-1), ok, search_radius)
 
 
@@ -179,10 +246,11 @@ def level_track_v1(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
         return level_track_v1_reference(img_prev_pad, img_next_pad, pts, guess, win,
                                         iters, eps, min_eig, search_radius, pad,
                                         active, stats)
-    flow_d, ok = launch("svo_lk_level_v1", img_prev_pad, img_next_pad, pts, guess,
-                        win, iters, eps, min_eig, pad, active, stats)
-    level_track_v1.launches += 1
-    return finish(guess, flow_d, ok > 0, search_radius)
+    out = launch("svo_lk_level_v1", img_prev_pad, img_next_pad, pts, guess, win, iters,
+                 eps, min_eig, pad, active, stats, search_radius)
+    if len(pts):
+        level_track_v1.launches += 1
+    return out
 
 
 level_track_v1.launches = 0

@@ -12,7 +12,7 @@ the JAX kernel it takes no ``active`` mask: every point is tracked.
 CUDA kernel ``csrc/lk_block.cu`` (one warp per point, entry
 ``svo_lk_level_v2``). The wrapper routes by device as
 ``lk_v1.level_track_v1`` does and counts its launches in
-``level_track_v2.launches``.
+``level_track_v2.launches`` (none at N = 0).
 """
 from __future__ import annotations
 
@@ -50,7 +50,8 @@ def level_track_v2(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
     flow_d, ok = lk_v1.launch("svo_lk_level_v2", img_prev_pad, img_next_pad, pts, guess,
                               win, iters, eps, min_eig, pad, None, stats,
                               smem=lk_block.smem_bytes(win))
-    level_track_v2.launches += 1
+    if len(pts):
+        level_track_v2.launches += 1
     return lk_v1.finish(guess, flow_d, ok > 0, search_radius)
 
 

@@ -8,10 +8,10 @@ first use (never at import), into ``_build/`` beside the package (listed in
 headers (``csrc/*.cuh``) so an edited kernel is rebuilt. There is no
 fallback: a failed build raises.
 
-The lean launch path of the patch kernels K1 and K2: ``entry`` resolves a C
-entry point once (later calls are a dict lookup, without ``lib``'s lock);
-their wrappers take the raw stream from ``patch.current_stream``. This
-module does not import torch.
+The lean launch path of every kernel wrapper: ``entry`` resolves a C entry
+point once (later calls are a dict lookup, without ``lib``'s lock; ``lib``
+is only its loader); the wrappers take the raw stream from
+``cuda_stream.current_stream``. This module does not import torch.
 """
 from __future__ import annotations
 
@@ -30,18 +30,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# The LK level kernels K3-K6 share one argument list: prev, next, hp, wp,
-# pts, guess, active, n, win, iters, eps^2, min_eig, pad, flow, ok, stats,
-# device, stream.
+# The LK level kernels K5 and K6 share one argument list: prev, next, hp, wp,
+# pts, guess, active (float32), n, win, iters, eps^2, min_eig, pad, flow
+# (delta), ok (float32), stats, device, stream.
 _LK_LEVEL = [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P, _I, _P]
+# K3 and K4 finish the level in the kernel: the same, with active as bool
+# bytes (or null), the search radius after pad, flow = guess + delta, ok as
+# bool and stats optional (null).
+_LK_FUSED = _LK_LEVEL[:13] + [_F] + _LK_LEVEL[13:]
 # C entry points of csrc/: name -> argtypes (all return a cudaError_t as int).
 _SIGNATURES = {
     # img, hp, wp, corners, n, Sh, Sw, out, device, stream
     "svo_extract_windows_int": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P],
     # img, h, w (unpadded), centers, n, P, pad, out, device, stream
     "svo_extract_patches": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P],
-    "svo_lk_level_cell": _LK_LEVEL,
-    "svo_lk_level_v1": _LK_LEVEL,
+    "svo_lk_level_cell": _LK_FUSED,
+    "svo_lk_level_v1": _LK_FUSED,
     "svo_lk_level_block": _LK_LEVEL,
     "svo_lk_level_v2": _LK_LEVEL,
     # the LK level arguments up to stats, then mode, rounds, dots, device, stream

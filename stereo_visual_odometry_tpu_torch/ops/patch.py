@@ -19,8 +19,8 @@ wrapper's ``launches``. There is no other route: a CUDA input that the kernel
 cannot take, or a failed build or launch, raises. The checks are one
 boolean expression; the message is built only when it fails. The launch
 takes the lean path (``native.entry``, resolved once, and
-``current_stream``, the raw current stream): the wrappers run inside a CUDA
-graph capture unchanged.
+``cuda_stream.current_stream``, the raw current stream): the wrappers run
+inside a CUDA graph capture unchanged.
 
 The JAX wrappers' BLK=8 point padding and Mosaic alignment pads are not
 needed here; any N works.
@@ -30,20 +30,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import native
+from . import cuda_stream, native
 
 _F32, _I32 = torch.float32, torch.int32
 MAX_PATCH = 127  # the JAX kernel's limit: a (P+1)-wide window in 256 lanes
-
-
-def current_stream(index: int) -> int:
-    """PyTorch's current CUDA stream on device ``index`` as a raw
-    ``cudaStream_t``: inside ``torch.cuda.graph`` the capturing stream.
-
-    ``torch._C._cuda_getCurrentRawStream`` is private; it is the call
-    Triton's launcher makes, and it skips the ``torch.cuda.Stream`` object
-    that ``torch.cuda.current_stream(device).cuda_stream`` builds."""
-    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _window_shape(S) -> tuple[int, int]:
@@ -108,7 +98,7 @@ def extract_windows_int(img_pad: torch.Tensor, corner_rc: torch.Tensor,
     index = img_pad.get_device()
     err = native.entry("svo_extract_windows_int")(
         img_pad.data_ptr(), hp, wp, corner_rc.data_ptr(), n, sh, sw, out.data_ptr(),
-        index, current_stream(index))
+        index, cuda_stream.current_stream(index))
     if err != 0:
         raise RuntimeError(f"extract_windows_int launch failed: cudaError {err}")
     extract_windows_int.launches += 1
@@ -241,7 +231,7 @@ def extract_patches(img: torch.Tensor, centers_xy: torch.Tensor, P: int) -> torc
     index = img.get_device()
     err = native.entry("svo_extract_patches")(
         img.data_ptr(), h, w, centers_xy.data_ptr(), n, P, pad, out.data_ptr(), index,
-        current_stream(index))
+        cuda_stream.current_stream(index))
     if err != 0:
         raise RuntimeError(f"extract_patches launch failed: cudaError {err}")
     extract_patches.launches += 1

@@ -9,13 +9,14 @@ for any amount (negative, or beyond the axis length).
 CUDA kernel ``csrc/roll.cu`` (one thread per element, the amount read from
 the (1, 1) int32 tensor on the card, so the host never waits for it); plain
 version ``roll_reference``. The wrapper routes by device as ``patch.py``
-does and counts its launches in ``roll.launches``.
+does, launches through the same lean path (``native.entry``, the raw current
+stream) and counts its launches in ``roll.launches``.
 """
 from __future__ import annotations
 
 import torch
 
-from . import native
+from . import cuda_stream, native
 
 
 def _check(x: torch.Tensor, amt: torch.Tensor, axis: int) -> None:
@@ -48,9 +49,9 @@ def roll(x: torch.Tensor, amt: torch.Tensor, axis: int) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     rows, cols = x.shape
-    err = native.lib().svo_roll(x.data_ptr(), rows, cols, amt.data_ptr(), axis,
-                                out.data_ptr(), x.device.index,
-                                torch.cuda.current_stream(x.device).cuda_stream)
+    index = x.get_device()
+    err = native.entry("svo_roll")(x.data_ptr(), rows, cols, amt.data_ptr(), axis,
+                                   out.data_ptr(), index, cuda_stream.current_stream(index))
     if err != 0:
         raise RuntimeError(f"svo_roll launch failed: cudaError {err}")
     roll.launches += 1

@@ -165,27 +165,28 @@ def measure(patch, roll, timing) -> dict:
     return res
 
 
-def host_split(patch, native) -> dict:
+def host_split(patch, native, current_stream) -> dict:
     """K1's wrapper on the host, piece by piece (us per call, each through
     one Python call): the pieces of the lean launch path beside the ones
     they replace (``torch.empty`` with a device, the ``torch.cuda.Stream``
     getter, ``native.lib`` and its lock), the C entry through ctypes with
     no points (it returns before the launch) and with K1_N points (the
     launch), and the whole wrapper with no points (the checks and the empty
-    output; it returns before the C entry) and with K1_N points."""
+    output; it returns before the C entry) and with K1_N points.
+    ``current_stream`` is the raw-stream getter of the checkout timed."""
     hp, wp, S = K1_SHAPE
     img, corners = k1_inputs(hp, wp, S, seed=S)
     dev, index, name = img.device, img.get_device(), "svo_extract_windows_int"
     fn, out = native.entry(name), patch.extract_windows_int(img, corners, S)
     none = corners[:0]
-    stream = patch.current_stream(index)
+    stream = current_stream(index)
     c_entry = lambda n: fn(img.data_ptr(), hp, wp, corners.data_ptr(), n, S, S,
                            out.data_ptr(), index, stream)
     pieces = {
         "new_empty": lambda: img.new_empty((K1_N, S, S)),
         "torch_empty_device": lambda: torch.empty((K1_N, S, S), dtype=torch.float32,
                                                   device=dev),
-        "current_stream": lambda: patch.current_stream(index),
+        "current_stream": lambda: current_stream(index),
         "current_stream_object": lambda: torch.cuda.current_stream(dev).cuda_stream,
         "entry": lambda: native.entry(name),
         "lib_locked": native.lib,
@@ -213,7 +214,11 @@ def main(argv=None) -> int:
                          timeout=60, check=True).stdout.strip()
     res = {"root": args.root, "card": smi, **measure(patch, roll, timing)}
     if hasattr(native, "entry"):
-        res["k1_host_split_us"] = host_split(patch, native)
+        try:
+            from stereo_visual_odometry_tpu_torch.ops.cuda_stream import current_stream
+        except ImportError:  # a checkout from before the shared module
+            current_stream = patch.current_stream
+        res["k1_host_split_us"] = host_split(patch, native, current_stream)
     print(json.dumps(res))
     return 0
 

@@ -25,8 +25,8 @@ import torch
 
 from stereo_visual_odometry_tpu_torch.models.frontend import VOConfig
 from stereo_visual_odometry_tpu_torch.models.system import System
-from stereo_visual_odometry_tpu_torch.ops import (lk_block, lk_cell, lk_v1, lk_v2, orb, patch,
-                                                  roll)
+from stereo_visual_odometry_tpu_torch.ops import (cuda_stream, lk_block, lk_cell, lk_v1, lk_v2,
+                                                  orb, patch, roll)
 from stereo_visual_odometry_tpu_torch.ops import pnp as tpnp
 from stereo_visual_odometry_tpu_torch.probes import lk_breakdown
 from stereo_visual_odometry_tpu_torch.probes import roll as probe_roll
@@ -230,7 +230,7 @@ def test_k2_patch_size_limits():
     index = big.get_device()
     err = native.entry("svo_extract_patches")(
         big.data_ptr(), 600, 600, xy.data_ptr(), len(xy), P, P // 2 + 2, out.data_ptr(),
-        index, patch.current_stream(index))
+        index, cuda_stream.current_stream(index))
     assert err != 0
 
 
@@ -294,8 +294,12 @@ def test_lk_level_kernel_matches_reference(kernel, hp, wp, eps, radius):
     assert (it[~active] == 0).all() and it.max() <= 30
     # The shift is recovered (interior points).
     assert np.median(np.abs(fk.cpu().numpy()[both] - [2.0, -1.0])) < 0.05
-    empty, ok0 = fn(args[0], args[1], args[2][:0], args[3][:0], pad=pad)
-    assert empty.shape == (0, 2) and ok0.shape == (0,)
+    stats0 = {}
+    empty, ok0 = fn(args[0], args[1], args[2][:0], args[3][:0], pad=pad, stats=stats0)
+    assert fn.launches == before + 1  # nothing to launch at N = 0
+    assert empty.shape == (0, 2) and empty.dtype == torch.float32
+    assert ok0.shape == (0,) and ok0.dtype == torch.bool
+    assert stats0["iters"].shape == (0,) and stats0["iters"].dtype == torch.int32
 
 
 @pytest.mark.parametrize("kernel", list(LK_LEVEL) + ["split"])
@@ -345,6 +349,11 @@ def test_k8_split_kernel_matches_reference(label):
     got = lk_breakdown.run_variant(label, inputs)
     torch.cuda.synchronize()
     assert lk_block.level_track_block_split.launches == before + 1
+    mode, rounds = lk_breakdown.VARIANTS[label]
+    flow0, ok0, dots0 = lk_block.level_track_block_split(
+        inputs["prev"], inputs["next"], inputs["pts"][:0], probe_block.PAD, mode, rounds)
+    assert lk_block.level_track_block_split.launches == before + 1  # none at N = 0
+    assert (flow0.shape, ok0.shape, dots0.shape) == ((0, 2), (0,), (0, got[2].shape[1], 8))
     if label == "full":
         flow, ok = lk_block.level_track_block(
             inputs["prev"], inputs["next"], inputs["pts"], inputs["guess"],
@@ -356,6 +365,130 @@ def test_k8_split_kernel_matches_reference(label):
         for g, w in zip(got, want):
             assert g.shape == w.shape
             assert lk_breakdown.rel_err(g, w) <= 1e-4
+
+
+def _smooth_pair(rng, hp, wp, shift_xy):
+    """A smooth zero-mean texture (12 sinusoids, periods 40-100 px) and the
+    same moved by ``shift_xy`` px: LK converges from 10 px away. Zero mean
+    keeps K3's 8 dots from cancelling a large constant, so two orders of
+    the sums agree to ~1e-3 px (K3's plain version on the transposed pair,
+    on the CPU: 7.9e-4 px at most)."""
+    k = 12
+    period, theta = rng.uniform(40, 100, k), rng.uniform(0, 2 * np.pi, k)
+    phase, amp = rng.uniform(0, 2 * np.pi, k), rng.uniform(10, 30, k)
+    wx, wy = 2 * np.pi * np.cos(theta) / period, 2 * np.pi * np.sin(theta) / period
+    y, x = np.arange(hp)[:, None, None], np.arange(wp)[None, :, None]
+    img = lambda dx, dy: ((amp * np.sin(wx * (x - dx) + wy * (y - dy) + phase))
+                          .sum(-1) / 4).astype(np.float32)
+    return img(0.0, 0.0), img(*shift_xy)
+
+
+@pytest.mark.parametrize("kernel", ["cell", "v1"])
+def test_k3_k4_windows_outside_the_staged_region(kernel):
+    """Guesses STAGE_MARGIN + 4 px off the motion: the points' windows leave
+    the region of the next image staged around the guess (on average more
+    than one window per point: 2.1 for K3, 3.0 for K4, by the plain version
+    on the CPU; every point converges within 8 iterations, where from 12 px
+    some run all 30) and are read from device memory; the results
+    match the plain version under phase 5's criteria: ok masks >= 99% equal,
+    flows within 1e-3 px for >= 98% of the kept points and within eps for
+    all, the mean iterations and reloads within 0.01."""
+    need_cuda()
+    rng = np.random.default_rng(9)
+    hp, wp, pad, n = 216, 768, 12, 1024
+    prev, nxt = _smooth_pair(rng, hp, wp, (2.0, -1.0))
+    pts = (rng.random((n, 2)) * [wp - 2 * pad - 1, hp - 2 * pad - 1]).astype(np.float32)
+    guess = (np.float32([2.0 + lk_v1.STAGE_MARGIN + 4, -1.0])
+             + rng.uniform(-0.5, 0.5, (n, 2))).astype(np.float32)
+    args = [torch.from_numpy(a).cuda() for a in (prev, nxt, pts, guess)]
+    fn, ref, _ = LK_LEVEL[kernel]
+    kw = dict(eps=0.01, search_radius=20, pad=pad)
+    st_k, st_p = {}, {}
+    fk, okk = fn(*args, stats=st_k, **kw)
+    fp, okp = ref(*args, stats=st_p, **kw)
+    share = lk_v1.staged_share(args[2], args[3], st_p, hp, wp, pad=pad)
+    assert (1.0 - share) * len(st_p["corners"]) > n
+    assert float((okk == okp).float().mean()) >= 0.99
+    both = okk & okp
+    assert int(both.sum()) > 0.9 * n
+    d = (fk - fp).abs().amax(-1)[both]
+    assert float((d > 1e-3).float().mean()) <= 0.02 and float(d.max()) <= 0.01
+    for key in ("iters", "reloads"):
+        assert abs(float(st_k[key].float().mean()) - float(st_p[key].float().mean())) <= 0.01
+    assert float((fk[both] - torch.tensor([2.0, -1.0], device="cuda")).norm(dim=-1)
+                 .median()) < 0.05
+
+
+def _k3_k4_inputs(seed=6):
+    rng = np.random.default_rng(seed)
+    hp, wp, pad, n = 408, 1408, 12, 1024
+    prev = _textured(rng, hp, wp)
+    nxt = np.roll(prev, (-1, 2), axis=(0, 1))
+    pts = (rng.random((n, 2)) * [wp - 2 * pad - 1, hp - 2 * pad - 1]).astype(np.float32)
+    guess = rng.uniform(-1.5, 1.5, (n, 2)).astype(np.float32)
+    active = rng.random(n) > 0.25
+    return [torch.from_numpy(a).cuda() for a in (prev, nxt, pts, guess, active)], pad
+
+
+def test_k3_k4_in_a_cuda_graph_match_eager():
+    """Captured in a CUDA graph, K3 and K4 (with and without a mask, with
+    statistics) give the eager outputs bit for bit, also after the inputs
+    change in place between replays."""
+    need_cuda()
+    (prev, nxt, pts, guess, active), pad = _k3_k4_inputs()
+    stats = [{}, {}]
+
+    def calls():
+        return (*lk_cell.level_track_cell(prev, nxt, pts, guess, pad=pad, active=active,
+                                          stats=stats[0]),
+                *lk_v1.level_track_v1(prev, nxt, pts, guess, pad=pad, stats=stats[1]),
+                *lk_cell.level_track_cell(prev, nxt, pts, guess, pad=pad, search_radius=20))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    captured_stats = [dict(st) for st in stats]
+    for step in range(2):
+        if step:
+            nxt.copy_(torch.roll(nxt, 1, 1))
+            guess.add_(0.25)
+            active.copy_(~active)
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, calls()):
+            assert torch.equal(got, want)
+        for got, want in zip(captured_stats, stats):
+            assert all(torch.equal(got[k], want[k]) for k in ("iters", "reloads"))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("kernel", ["cell", "v1"])
+def test_k3_k4_wrapper_call_is_one_kernel(kernel, masked):
+    """One level call is one CUDA kernel and no other device work (no mask
+    conversion, no tail), by the profiler's count. A profiler session that
+    recorded no device work at all (CUPTI now and then delivers no record
+    of a short session; the kernel ran) is taken again, up to three times."""
+    need_cuda()
+    (prev, nxt, pts, guess, active), pad = _k3_k4_inputs()
+    fn = LK_LEVEL[kernel][0]
+    kw = dict(pad=pad, active=active if masked else None)
+    fn(prev, nxt, pts, guess, **kw)  # the build and the first launch
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(prev, nxt, pts, guess, **kw)
+            torch.cuda.synchronize()
+        device_work = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device_work:
+            break
+    assert len(device_work) == 1 and "lk_level_kernel" in device_work[0], device_work
 
 
 COUNTERS = (patch.extract_windows_int, patch.extract_patches,

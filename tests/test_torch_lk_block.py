@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from stereo_visual_odometry_tpu_torch.ops import lk_block, lk_v2
+from stereo_visual_odometry_tpu_torch.ops import lk_block, lk_cell, lk_v1, lk_v2
 from stereo_visual_odometry_tpu_torch.probes import lk_block as probe_block
 from stereo_visual_odometry_tpu_torch.probes import lk_breakdown as probe_breakdown
 from torch_jax_kernels import jax_lk_breakdown, load_script, textured
@@ -163,6 +163,30 @@ def test_wrapper_routes_cpu_tensors_to_plain_version(level, kernel):
             else plain(*args, pad=PAD))
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kernel", ["cell", "v1", "block", "v2", "split"])
+def test_no_points_give_empty_outputs(level, kernel):
+    """N = 0 through the plain route of K3-K6 and K8: empty outputs of the
+    wrappers' shapes and dtypes, empty statistics, no launch counted."""
+    prev, nxt, _, _, _ = level
+    img_p, img_n, none = torch.from_numpy(prev), torch.from_numpy(nxt), torch.zeros(0, 2)
+    if kernel == "split":
+        before = lk_block.level_track_block_split.launches
+        flow, ok, dots = lk_block.level_track_block_split(img_p, img_n, none, PAD, "reload", 2)
+        assert lk_block.level_track_block_split.launches == before
+        assert (flow.shape, ok.shape, dots.shape) == ((0, 2), (0,), (0, 2, 8))
+        assert flow.dtype == ok.dtype == dots.dtype == torch.float32
+        return
+    fn = {"cell": lk_cell.level_track_cell, "v1": lk_v1.level_track_v1,
+          "block": lk_block.level_track_block, "v2": lk_v2.level_track_v2}[kernel]
+    before, stats = fn.launches, {}
+    flow, ok = fn(img_p, img_n, none, none, pad=PAD, stats=stats)
+    assert fn.launches == before
+    assert flow.shape == (0, 2) and flow.dtype == torch.float32
+    assert ok.shape == (0,) and ok.dtype == torch.bool
+    for key in ("iters", "reloads"):
+        assert stats[key].shape == (0,) and stats[key].dtype == torch.int32
 
 
 @pytest.mark.parametrize("kernel", list(PLAIN))

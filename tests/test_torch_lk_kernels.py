@@ -119,6 +119,32 @@ def test_level_kernel_matches_jax(scene, kernel, level, eps, radius):
     if kernel == "v1":
         np.testing.assert_array_equal(rel, it)
     assert len(stats["corners"]) == rel.sum()
+    np.testing.assert_array_equal(np.bincount(stats["points"].numpy(), minlength=len(pts)),
+                                  rel)
+
+
+@pytest.mark.parametrize("kernel", ["cell", "v1"])
+def test_staged_share_counts_reloads_inside_the_region(scene, kernel):
+    """The share of a level call's reloads that K3/K4 read from their staged
+    region of the next image: every one for a region over the whole level,
+    and for a margin of 0 those at the window of the guess itself."""
+    pyr, xy, valid = scene
+    ip, pad = pad_level(pyr["t1l"][0])
+    inx, _ = pad_level(pyr["t2l"][0])
+    guess = np.random.default_rng(4).uniform(-1.5, 1.5, xy.shape).astype(np.float32)
+    args = (torch.from_numpy(ip), torch.from_numpy(inx), torch.from_numpy(xy),
+            torch.from_numpy(guess))
+    stats = {}
+    KERNELS[kernel][0](*args, pad=pad, active=torch.from_numpy(valid), stats=stats)
+    hp, wp = ip.shape
+    share = lambda m: lk_v1.staged_share(args[2], args[3], stats, hp, wp, pad=pad, margin=m)
+    assert share(max(hp, wp)) == 1.0
+    at_guess = np.stack([np.clip(np.floor(xy[:, 1] + pad + guess[:, 1] - 10), 0, hp - 22),
+                         np.clip(np.floor(xy[:, 0] + pad + guess[:, 0] - 10), 0, wp - 22)],
+                        -1)[stats["points"].numpy()]
+    want = float(np.all(stats["corners"].numpy() == at_guess, axis=1).mean())
+    assert 0.0 < want < 1.0 and share(0) == pytest.approx(want)
+    assert share(0) <= share(2) <= share(lk_v1.STAGE_MARGIN) <= 1.0
 
 
 def test_cell_and_v1_plain_versions_agree(scene):

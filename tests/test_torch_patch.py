@@ -235,3 +235,12 @@ def test_patch_timing_probe_needs_a_gpu():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         patch_timing.main([])
+
+
+def test_lk_timing_probe_needs_a_gpu():
+    """So does the LK kernels' timing probe."""
+    from stereo_visual_odometry_tpu_torch.probes import lk_timing
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lk_timing.main([])
