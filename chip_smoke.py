@@ -3,7 +3,7 @@
 on one NVIDIA GPU, end to end through its ``System``: LK on each level
 tracker and prior of ``VOConfig``, and ORB.
 
-    python3 chip_smoke.py    # the fifteen phases below, on cuda:0
+    python3 chip_smoke.py    # the sixteen phases below, on cuda:0
 
 Phases (each prints one line; any failure exits non-zero):
   1. device: needs ``torch.cuda.is_available()`` (no CPU path); prints
@@ -28,8 +28,10 @@ Phases (each prints one line; any failure exits non-zero):
      launch counted;
   6. the LK slice: the 49-frame KITTI-shaped synthetic sequence (376x1241
      edge-padded to 384x1280, 1024 features) through
-     ``System.run_chunked(chunk=16)``; ATE < 0.05 m, accept >= 0.95, K1
-     launched 27 times per tracked frame + once at init;
+     ``System.run_chunked(chunk=16)``, the step replayed from its CUDA graph
+     (``models/step_graph.py``) as in phases 7-9; ATE < 0.05 m, accept >=
+     0.95, K1 launched 27 times per tracked frame + once at init (the
+     graph's tally: its launches per replay, added at each replay);
   7. the ORB slice: the same frames, ``mode='orb'`` at 2048 features;
      ATE < 0.07 m, accept >= 0.95, and (without a reinit) K1 and K2
      launched 16 times per frame (8 levels x 2 images), 784 in all;
@@ -79,7 +81,16 @@ Phases (each prints one line; any failure exits non-zero):
      the staged region by margin; and over every level call of the first 8
      bench frames (recorded from ``System.run_chunked``), the kernel alone
      in a graph, the iterations per tracked point and the staged share;
- 15. the kernel report.
+ 15. eager against graph: each slice of phases 6-9 run by ``System`` with
+     ``graph=False`` and then with the graph, in turns in this call: both
+     ms/frame, ATE, accept and n_tracked, which must be equal, and whether
+     the trajectories are equal bit for bit; then per path one profiled
+     replay of the graph and one profiled eager step: device ops (nodes)
+     per replay, device-busy ms, wall ms, the host time of one
+     ``cudaGraphLaunch``, the replay back to back, and the device's idle
+     share, one step of each from an idle device (``StageTimer``), and the
+     step's ops by stage and function (``probes/step_nodes.py``);
+ 16. the kernel report.
 The launch counts hold without a reinit; each slice's run sets every
 count to 0 just before ``run_chunked`` and reads them just after. The
 second-to-last line is the kernel report (JSON), the last line
@@ -271,10 +282,12 @@ def reset_launches(kernels) -> None:
 
 
 def run_slice(np, torch, system_mod, trajectory, kernels, cfg, frames, poses_gt, tag,
-              chunk=16):
-    """Drive ``System.run_chunked`` once with the launch counts set to 0 just
-    before and read just after; returns (numbers, launches)."""
-    sys_ = system_mod.System(cfg, device="cuda")
+              chunk=16, graph=True, keep=False):
+    """Drive ``System.run_chunked`` once (the step from its CUDA graph, or
+    eagerly with ``graph=False``) with the launch counts set to 0 just
+    before and read just after; returns (numbers, launches), the numbers
+    with the ``System`` under "system" if ``keep``."""
+    sys_ = system_mod.System(cfg, device="cuda", graph=graph)
     reset_launches(kernels)
     t0 = time.perf_counter()
     traj = sys_.run_chunked(frames, chunk=chunk)
@@ -293,7 +306,12 @@ def run_slice(np, torch, system_mod, trajectory, kernels, cfg, frames, poses_gt,
         "ms_frame": 1e3 * float(np.mean(steady)), "n_steady": len(steady), "wall": wall,
         "no_reinit": all(m["n_detected"] >= cfg.vo.min_features_detect
                          for m in sys_.metrics),
+        "traj": traj, "accepts": [m["accept"] for m in tracked],
+        "tracked": [m["n_tracked"] for m in tracked],
+        "capture_s": sys_.graph.capture_s if graph else 0.0,
     }
+    if keep:
+        out["system"] = sys_
     return out, launches
 
 
@@ -303,7 +321,8 @@ def describe_slice(tag, r, launches, want, n_frames=N_FRAMES):
             f"accept {r['accept']:.3f}, n_tracked {r['n_tracked']:.1f}, steady "
             f"{r['ms_frame']:.2f} ms/frame ({1e3 / r['ms_frame']:.1f} fps; "
             f"{r['n_steady']} frames after the first chunk), whole run "
-            f"{r['wall']:.2f} s, launches {launches} (want {want} without a reinit)")
+            f"{r['wall']:.2f} s (warm-up and capture {r['capture_s']:.2f} s), launches "
+            f"{launches} (want {want} without a reinit)")
 
 
 def check_slice(tag, r, launches, want, max_ate, min_accept, ate="ate"):
@@ -315,8 +334,66 @@ def check_slice(tag, r, launches, want, max_ate, min_accept, ate="ate"):
         check(launches == want, f"{tag} launches {launches}, want {want}")
 
 
+def profile_step(np, torch, profiling, step_nodes, tag, eager, graphed, frame):
+    """One profiled step of each run's ``System`` after its run, on its last
+    frame: the eager ``step_fn`` and one replay of the graph (device ops,
+    busy and wall ms, the idle share against that wall and against the run's
+    steady ms/frame); for the graph also the host time of one launch
+    (median of 5) and the replay back to back (``time_jitted``, 10
+    replays); one eager step and one replay from an idle device, 3 of each
+    in turns (``StageTimer``); and where the step's ops come from
+    (``probes/step_nodes.py``: the aten ops with device work of one eager
+    step, by stage and by function, the four most frequent of each).
+    Returns a description."""
+    sys_e, sys_g = eager["system"], graphed["system"]
+    il, ir = (torch.as_tensor(a, device="cuda") for a in frame)
+    nodes = step_nodes.count(sys_e.step_fn, sys_e.state, il, ir)
+    head = lambda d: ", ".join(f"{k} x{v}" for k, v in list(d.items())[:4])
+    host_us = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        sys_g.graph.launch()
+        host_us.append(1e6 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    replay_ms = 1e3 * profiling.time_jitted(sys_g.graph.launch, iters=10, warmup=1)
+    timer = profiling.StageTimer()
+    for _ in range(3):
+        with timer.stage("eager"):
+            sys_e.step_fn(sys_e.state, il, ir)
+        with timer.stage("graph"):
+            sys_g.graph.launch()
+    stage_ms = {k: v["mean_ms"] for k, v in timer.summary().items()}
+    out = []
+    for name, call, run in (("eager", lambda: sys_e.step_fn(sys_e.state, il, ir), eager),
+                            ("graph", sys_g.graph.launch, graphed)):
+        for _ in range(3):  # CUPTI now and then records nothing of a session
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profiling.trace(None) as prof:
+                call()
+                torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            act = profiling.device_activity(prof)
+            if act["ops"]:
+                break
+        top = sorted(act["names"].items(), key=lambda kv: -kv[1])[:3]
+        out.append(f"{name} {act['ops']} ops, busy {act['busy_ms']:.3f} ms, span "
+                   f"{act['span_ms']:.3f} ms, wall {wall:.3f} ms (profiled), idle "
+                   f"{1 - act['busy_ms'] / wall:.3f} of that wall and "
+                   f"{1 - act['busy_ms'] / run['ms_frame']:.3f} of the steady "
+                   f"{run['ms_frame']:.2f} ms/frame; most frequent "
+                   + ", ".join(f"{n[:40]} x{c}" for n, c in top))
+    return (f"{tag}: " + "; ".join(out) + f"; graph launch host time "
+            f"{np.median(host_us):.1f} us, replay back to back {replay_ms:.3f} ms; one step from "
+            f"an idle device (StageTimer, 3 each in turns): eager {stage_ms['eager']:.3f} ms, "
+            f"graph {stage_ms['graph']:.3f} ms; aten ops "
+            f"with device work {nodes['total']} (+ the kernels {sys_g.graph.per_replay}), "
+            f"by stage: {head(nodes['by_stage'])}; by function: {head(nodes['by_function'])}")
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+    t_start = time.perf_counter()
     import numpy as np
     import torch
 
@@ -328,7 +405,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/15] device: {kind} x{torch.cuda.device_count()}, torch "
+    print(f"[1/16] device: {kind} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, cuda {torch.version.cuda}")
     print(smi)
 
@@ -341,9 +418,10 @@ def main() -> int:
     from stereo_visual_odometry_tpu_torch.probes import lk_block as probe_block
     from stereo_visual_odometry_tpu_torch.probes import lk_breakdown, lk_timing, patch_timing
     from stereo_visual_odometry_tpu_torch.probes import roll as probe_roll
+    from stereo_visual_odometry_tpu_torch.probes import step_nodes
     from stereo_visual_odometry_tpu_torch.probes import timing
     k1_inputs, k2_inputs = patch_timing.k1_inputs, patch_timing.k2_inputs
-    from stereo_visual_odometry_tpu_torch.utils import trajectory
+    from stereo_visual_odometry_tpu_torch.utils import profiling, trajectory
     from stereo_visual_odometry_tpu_torch.utils.config import RunConfig
 
     kernels = {"extract_windows_int": patch.extract_windows_int,
@@ -370,7 +448,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
              if "registers" in ln or "Compiling entry" in ln]
-    print(f"[2/15] kernel library {lib_path.name} {how} in {build_s:.2f}s; "
+    print(f"[2/16] kernel library {lib_path.name} {how} in {build_s:.2f}s; "
           f"ptxas: {'; '.join(ptxas)}")
 
     # 3. K1 vs plain at the LK and ORB shapes -------------------------------
@@ -394,7 +472,7 @@ def main() -> int:
         check(err == 0.0, f"K1 disagrees with its plain version at {(hp, wp, S, n)}: "
               f"max abs err {err}")
         k1_err = max(k1_err, err)
-    print(f"[3/15] K1 vs plain at {len(K1_SHAPES)} LK shapes (N={N_POINTS}), the XLA "
+    print(f"[3/16] K1 vs plain at {len(K1_SHAPES)} LK shapes (N={N_POINTS}), the XLA "
           f"tracker's S=64/36 windows, {len(orb_maps)} ORB score maps (S=3, "
           f"N=budget) and N={K1_RAGGED} at S=24, (5, 7), (64, 36) ({len(k1_cases)} "
           f"cases): max abs err {k1_err} (tolerance 0: a copy)")
@@ -423,7 +501,7 @@ def main() -> int:
             bits_p = orb.brief_bits_from_patches(want, None)
             bit_flips += int((bits_k != bits_p).sum())
     check(bit_flips == 0, f"K2's patches give {bit_flips} other BRIEF bits")
-    print(f"[4/15] K2 vs plain (on the padded image, and the clamped plain version) at "
+    print(f"[4/16] K2 vs plain (on the padded image, and the clamped plain version) at "
           f"{len(ORB_LEVELS)} ORB level shapes (P={ORB_PATCH}, N={ORB_BUDGETS}), P=31 at "
           f"levels 0-1, and centres up to 2 px outside on all four sides at levels 0, 3, "
           f"6 for P={ORB_PATCH}/31 and N={K2_RAGGED} ({len(k2_cases)} cases): max abs err "
@@ -456,29 +534,32 @@ def main() -> int:
     empty = [no_points(torch, name, kernels, lk_bool, lambda name=name: lk_fn[name](
         args[0], args[1], args[2][:0], args[3][:0], pad=PAD, active=active[:0]))
         for name in ("cell", "v1")]
-    print(f"[5/15] K3 (cell) and K4 (v1) vs plain (kernel against plain), N={N_POINTS}, "
+    print(f"[5/16] K3 (cell) and K4 (v1) vs plain (kernel against plain), N={N_POINTS}, "
           f"win {WIN}, 30 iters, {int(active.sum())} active: " + "; ".join(lines)
           + f"; N = 0, empty and no launch counted: {', '.join(empty)}")
 
     # 6-7. The LK and ORB slices through System on cuda ---------------------
     il, ir, poses_gt, cam = lk_timing.bench_sequence(N_FRAMES)
     frames = list(zip(il, ir))
-    run = lambda vo, tag, fr=frames, gt=poses_gt, chunk=16: run_slice(
-        np, torch, system_mod, trajectory, kernels, RunConfig(camera=cam, vo=vo), fr, gt,
-        tag, chunk=chunk)
+    slices = {}  # tag -> (vo, frames, poses, chunk): phases 6-9's runs, for phase 15
+
+    def run(vo, tag, fr=frames, gt=poses_gt, chunk=16, **kw):
+        slices.setdefault(tag, (vo, fr, gt, chunk))
+        return run_slice(np, torch, system_mod, trajectory, kernels,
+                         RunConfig(camera=cam, vo=vo), fr, gt, tag, chunk=chunk, **kw)
     zero = dict.fromkeys(kernels, 0)
     lk_vo = dict(height=H, width=W, max_features=1024)
     launches = {}
     lk, launches["lk"] = run(VOConfig(**lk_vo), "LK")
     want = dict(zero, extract_windows_int=1 + LK_LAUNCHES_PER_STEP * (N_FRAMES - 1))
-    print("[6/15] " + describe_slice("LK", lk, launches["lk"], want))
+    print("[6/16] " + describe_slice("LK", lk, launches["lk"], want))
     check_slice("LK", lk, launches["lk"], want, 0.05, 0.95)
 
     orb_cfg = VOConfig(mode="orb", height=H, width=W, max_features=ORB_FEATURES)
     ob, launches["orb"] = run(orb_cfg, "ORB")
     want = dict(zero, extract_windows_int=ORB_LAUNCHES_PER_FRAME * N_FRAMES,
                 extract_patches=ORB_LAUNCHES_PER_FRAME * N_FRAMES)
-    print("[7/15] " + describe_slice("ORB", ob, launches["orb"], want))
+    print("[7/16] " + describe_slice("ORB", ob, launches["orb"], want))
     check_slice("ORB", ob, launches["orb"], want, 0.07, 0.95)
 
     # 8. The LK slice on K3 and on K4 ---------------------------------------
@@ -491,7 +572,7 @@ def main() -> int:
                                     want))
         check_slice(f"LK-{name}", r, launches[f"lk_{name}"], want, 0.05, 0.95)
         lines[-1] += f"; {lk['ms_frame'] / r['ms_frame']:.2f}x the dense LK ms/frame"
-    print("[8/15] " + "; ".join(lines) + f" (dense: {lk['ms_frame']:.2f} ms/frame)")
+    print("[8/16] " + "; ".join(lines) + f" (dense: {lk['ms_frame']:.2f} ms/frame)")
 
     # 9. The kernel-free LK branches on the first 16 frames -------------------
     lines = []
@@ -504,7 +585,7 @@ def main() -> int:
                                     BRANCH_FRAMES))
         check_slice(f"LK-{tag}", r, launches[f"lk_{tag}"], want, 0.15, 0.9,
                     ate="ate_from_1")
-    print("[9/15] " + "; ".join(lines))
+    print("[9/16] " + "; ".join(lines))
 
     # 10. K5 and K6 vs plain, and vs the K3 and K4 kernels ---------------------
     lines = []
@@ -527,7 +608,7 @@ def main() -> int:
             lines.append(f"{line}; {line_old}")
     empty = [no_points(torch, name, kernels, lk_bool, lambda name=name: lk_fn[name](
         args[0], args[1], args[2][:0], args[3][:0], pad=PAD)) for name in ("block", "v2")]
-    print(f"[10/15] K5 (block) and K6 (v2) vs plain (K3's and K4's plain versions) and "
+    print(f"[10/16] K5 (block) and K6 (v2) vs plain (K3's and K4's plain versions) and "
           f"vs the K3/K4 kernels, N={N_POINTS}, win {WIN}, 30 iters, K5 with phase 5's "
           f"mask, K6 on every point: " + "; ".join(lines)
           + f"; N = 0, empty and no launch counted: {', '.join(empty)}")
@@ -546,7 +627,7 @@ def main() -> int:
                 check(err == 0.0, f"K7 disagrees with torch.roll at axis {axis}, rows "
                       f"{rows}, amount {amt}: max abs err {err}")
                 k7_err, k7_cases = max(k7_err, err), k7_cases + 1
-    print(f"[11/15] K7 vs plain (torch.roll) over {k7_cases} cases: axis 0 and 1, "
+    print(f"[11/16] K7 vs plain (torch.roll) over {k7_cases} cases: axis 0 and 1, "
           f"({probe_roll.ROWS[0]}..{probe_roll.ROWS[-1]}, {probe_roll.COLS}), amounts "
           f"0, 1, 3, 7, 9 (axis 0) / 100 (axis 1), -1, the axis length and + 5: max abs "
           f"err {k7_err} (tolerance 0: a copy)")
@@ -572,7 +653,7 @@ def main() -> int:
                            probe_in["prev"], probe_in["next"], probe_in["pts"][:0],
                            probe_block.PAD, *lk_breakdown.VARIANTS[label]))
              for label in lk_breakdown.VARIANTS]
-    print(f"[12/15] K8 vs plain at {tuple(probe_in['prev'].shape)}, N={len(probe_in['pts'])}: "
+    print(f"[12/16] K8 vs plain at {tuple(probe_in['prev'].shape)}, N={len(probe_in['pts'])}: "
           + ", ".join(f"{lb} relative error {k8[lb]['rel_err']:.2e} (max abs "
                       f"{k8[lb]['abs_err']:.3g})" for lb in split_labels)
           + f" (tolerance 1e-4: sums in another order); full equals K5's output bit for "
@@ -610,7 +691,7 @@ def main() -> int:
     probe_t = probe_block.timing_ms(probe_in)
     k8_graph = lk_breakdown.timing_ms(probe_in)
     k8_split = lk_breakdown.split(k8_graph)
-    print("[13/15] probes (launches read after each run: "
+    print("[13/16] probes (launches read after each run: "
           + ", ".join(f"{p} {({k: v for k, v in launches[p].items() if v})}"
                       for p in probe_paths) + "): "
           + "; ".join(probe_block.describe(probe_out["probe_lk_block"], probe_t))
@@ -718,7 +799,7 @@ def main() -> int:
                 f"{us(t['library_graph_ms'])} (max diff {t['library_max_diff']}), bound "
                 f"{b_ms * 1e3:.3f} us ({b_by}), wrapper host time {t['host_us']:.2f} us")
 
-    print("[14/15] K3/K4 (probes/lk_timing.py; graphs of "
+    print("[14/16] K3/K4 (probes/lk_timing.py; graphs of "
           f"{lk_timing.GRAPH_CALLS} calls; staged share at margins {lk_timing.MARGINS}, "
           f"shipped {lk_v1.STAGE_MARGIN}): " + "; ".join(
               f"{lk_name[k]} {point}: kernel alone {us(t['kernel_graph_ms'])}, template "
@@ -732,10 +813,10 @@ def main() -> int:
               f"(largest {us(b['kernel_graph_ms_max'])}), iterations {b['iters']}, staged "
               f"share {b['staged_share']}"
               for k, b in lkt["bench"].items()))
-    print("[14/15] host time per K1 wrapper call, us (perf_counter over "
+    print("[14/16] host time per K1 wrapper call, us (perf_counter over "
           f"{patch_timing.HOST_CALLS} calls, no sync): "
           + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
-    print(f"[14/15] CUDA events, {patch_timing.B2B_CALLS} calls each (5 for the LK plain "
+    print(f"[14/16] CUDA events, {patch_timing.B2B_CALLS} calls each (5 for the LK plain "
           f"versions), and CUDA graphs of {patch_timing.GRAPH_CALLS} calls: "
           + patch_line(f"K1 S={S} N={N_POINTS} on {patch_timing.K1_SHAPE[:2]}", "k1",
                        k1_plain, k1_bound, k1_by, "grid_sample(nearest)") + "; "
@@ -754,7 +835,34 @@ def main() -> int:
                       f"bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})"
                       for lb, t in k8_t.items()) + ", no single library call")
 
-    # 15. Kernel report ---------------------------------------------------
+    # 15. Eager against graph, in turns; a profiled replay per path ---------
+    lines, profiles = [], []
+    for tag, (vo, fr, gt, chunk) in slices.items():
+        eager, _ = run(vo, tag, fr, gt, chunk, graph=False, keep=True)
+        graphed, _ = run(vo, tag, fr, gt, chunk, keep=True)
+        same = bool(np.array_equal(eager["traj"], graphed["traj"]))
+        check(eager["accepts"] == graphed["accepts"] and eager["tracked"] == graphed["tracked"]
+              and eager["ate"] == graphed["ate"] and same,
+              f"{tag}: the graph differs from the eager step: ATE {graphed['ate']} against "
+              f"{eager['ate']}, accept {graphed['accept']} against {eager['accept']}, "
+              f"n_tracked {graphed['n_tracked']} against {eager['n_tracked']}, largest pose "
+              f"difference {np.abs(eager['traj'] - graphed['traj']).max()}")
+        lines.append(f"{tag} ({len(fr)} frames): eager {eager['ms_frame']:.2f} ms/frame, "
+                     f"graph {graphed['ms_frame']:.2f} ({eager['ms_frame'] / graphed['ms_frame']:.2f}x), "
+                     f"capture {graphed['capture_s']:.2f} s; ATE {eager['ate']:.4f} / "
+                     f"{graphed['ate']:.4f} m, accept {eager['accept']:.3f} / "
+                     f"{graphed['accept']:.3f}, n_tracked {eager['n_tracked']:.1f} / "
+                     f"{graphed['n_tracked']:.1f}, trajectories equal bit for bit: {same}")
+        profiles.append(profile_step(np, torch, profiling, step_nodes, tag, eager, graphed,
+                                     fr[-1]))
+        del eager, graphed
+        torch.cuda.empty_cache()  # the graph's pool
+    print("[15/16] eager against graph, System.run_chunked in turns (eager, then graph; "
+          "steady ms/frame after the first chunk): " + "; ".join(lines))
+    print("[15/16] one profiled step per path (eager: step_fn; graph: one replay; device "
+          "ops = kernels, copies and fills; idle = 1 - busy / wall): " + "; ".join(profiles))
+
+    # 16. Kernel report ---------------------------------------------------
     src = "stereo_visual_odometry_tpu_torch/csrc/"
     by_path = lambda name: {p: ln[name] for p, ln in launches.items()}
     timed_keys = ("ms", "graph_ms", "library_ms", "library_graph_ms", "library_max_diff")
@@ -796,7 +904,8 @@ def main() -> int:
     for entry in report:
         entry["launches_by_path"] = by_path(entry["name"])
         entry["launches"] = sum(entry["launches_by_path"].values())
-    print("[15/15] kernel report and result")
+    print(f"[16/16] kernel report and result ({time.perf_counter() - t_start:.1f} s since the "
+          "start)")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

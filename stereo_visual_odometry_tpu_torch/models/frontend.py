@@ -22,7 +22,10 @@ inside the step:
 
 RANSAC draws come from the frontend's ``torch.Generator`` (JAX carries a
 PRNG key in the state instead); ``step_fn`` also takes the draws ``u``
-directly. The factories build on ``device="cuda"`` unless told otherwise,
+directly. ``make_buffer_step`` gives the step in buffer form, the form a
+CUDA graph captures (``models/step_graph.py``): it reads the state, the pair
+and ``u`` from tensors it does not own and writes the new state back into
+the state's tensors. The factories build on ``device="cuda"`` unless told otherwise,
 raise without a GPU, and raise for a rig on another device.
 
 Branches not ported yet (persistent tracks, the BA backend) raise
@@ -403,6 +406,53 @@ def make_frontend(cfg: VOConfig, rig: StereoRig, device="cuda",
 
 CHUNK_KEEP = ("T_21", "accept", "n_tracked", "n_inliers", "inlier_ratio",
               "t_norm", "n_detected")
+# What the host takes from a frame: the chunk metrics, the pose and the status.
+FRAME_KEEP = CHUNK_KEEP + ("T_wc", "status")
+
+
+def frame_outputs(state: dict, metrics: dict) -> dict:
+    """The ``FRAME_KEEP`` tensors of one step's (new state, metrics)."""
+    return {k: metrics[k] if k in metrics else state[k] for k in FRAME_KEEP}
+
+
+def write_back(state: dict, new_state: dict) -> None:
+    """Copy ``new_state`` into the tensors of ``state`` (one structure, equal
+    shapes and dtypes). Every leaf of ``new_state`` is computed before the
+    first copy, so a copy never feeds a later read of the old state; a new
+    leaf that shares memory with another leaf of ``state`` raises, as its
+    value could change under an earlier copy."""
+    from ..utils.tree import tree_pairs  # utils imports this module (VOConfig)
+
+    pairs = tree_pairs(state, new_state)
+    owned = {dst.untyped_storage().data_ptr() for _, dst, _ in pairs}
+    todo = []
+    for path, dst, src in pairs:
+        if dst.shape != src.shape or dst.dtype != src.dtype:
+            raise ValueError(f"state{path}: the step gives {src.dtype} {tuple(src.shape)}, "
+                             f"the buffer is {dst.dtype} {tuple(dst.shape)}")
+        if src.data_ptr() == dst.data_ptr() and src.stride() == dst.stride():
+            continue  # the buffer itself
+        if src.untyped_storage().data_ptr() in owned:
+            raise ValueError(f"state{path}: the new value shares memory with the state")
+        todo.append((dst, src))
+    for dst, src in todo:
+        dst.copy_(src)
+
+
+def make_buffer_step(step_fn):
+    """The step in buffer form: ``buffer_step(state, img_l, img_r, u, out)``
+    runs ``step_fn`` on the tensors it is handed (the RANSAC draws ``u``
+    included), copies the frame's ``FRAME_KEEP`` tensors into ``out`` and,
+    as its last ops, the new state into the tensors of ``state``. Built on
+    ``step_fn``, not a second copy of the pipeline."""
+
+    def buffer_step(state, img_l, img_r, u, out):
+        new_state, metrics = step_fn(state, img_l, img_r, u)
+        for k, v in frame_outputs(new_state, metrics).items():
+            out[k].copy_(v)
+        write_back(state, new_state)
+
+    return buffer_step
 
 
 def make_chunked_frontend(cfg: VOConfig, rig: StereoRig, device="cuda",

@@ -12,6 +12,17 @@ frontend is chosen by ``VOConfig.mode`` (LK or ORB); its state is opaque
 here. RANSAC draws come from a ``torch.Generator`` on the device seeded from
 ``RunConfig.seed``. The overlay dump and the BA backend are later slices and
 raise.
+
+On cuda, ``step`` and ``run_chunked`` replay the frontend step from one CUDA
+graph per ``System`` (``models/step_graph.py``, the counterpart of the JAX
+package's jitted step): the frontend state lives in the graph's buffers, a
+frame is copied into its static inputs, and its RANSAC draws are taken from
+the generator outside the graph with the eager step's own call, so both
+routes draw the same values in the same order. ``graph=False`` runs the
+step eagerly instead: an A/B switch, like ``jax.disable_jit``, for holding
+the graph to the eager step. The CPU always runs eagerly. Each frame hands
+the host only what it consumes (``frontend.FRAME_KEEP``), in one copy
+(``utils/hostcopy.py``).
 """
 from __future__ import annotations
 
@@ -23,21 +34,23 @@ import numpy as np
 import torch
 
 from . import frontend as frontend_mod
+from . import step_graph
+from ..ops import pnp
 from ..utils import trajectory as traj_mod
 from ..utils.config import RunConfig, rig_from_config
+from ..utils.hostcopy import device_get_tree
 
 log = logging.getLogger(__name__)
-
-
-def _to_host(tree: dict) -> dict:
-    """Copy a dict of tensors to numpy (one sync for the whole dict)."""
-    return {k: v.cpu().numpy() for k, v in tree.items()}
 
 
 class System:
     """End-to-end VO runtime around the LK or ORB frontend."""
 
-    def __init__(self, config: RunConfig, device="cuda", backend_cfg=None):
+    def __init__(self, config: RunConfig, device="cuda", backend_cfg=None,
+                 graph: bool = True):
+        """``graph``: on cuda, replay the step from a CUDA graph (the
+        default); False runs it eagerly (the A/B switch). The CPU runs
+        eagerly either way."""
         frontend_mod.check_supported(config.vo, backend_cfg)
         if config.overlay_dir:
             raise NotImplementedError(
@@ -55,6 +68,8 @@ class System:
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.init_fn, self.step_fn = frontend_mod.make_frontend(
             self.vo_cfg, self.rig, device=self.device, generator=self.generator)
+        self.graph = (step_graph.StepGraph(self.step_fn, self.vo_cfg, self.device)
+                      if graph and self.device.type == "cuda" else None)
         self.state = None
         self.status = frontend_mod.INITING
         self.lost_count = 0
@@ -70,30 +85,50 @@ class System:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _reinit(self, init_fn, img_l, img_r) -> None:
+    def _set_state(self, state: dict) -> None:
+        """Make ``state`` the live frontend state; under the graph, copied
+        into the graph's state buffers, which stay the live state."""
+        self.state = state if self.graph is None else self.graph.load_state(state)
+
+    def _advance(self, img_l, img_r) -> dict:
+        """One step from the live state: the frame's ``FRAME_KEEP`` tensors
+        (under the graph its output buffers, valid until the next step)."""
+        if self.graph is None:
+            self.state, metrics = self.step_fn(self.state, img_l, img_r)
+            return frontend_mod.frame_outputs(self.state, metrics)
+        u = pnp.draw_uniforms(self.vo_cfg.num_hypotheses, self.generator, device=self.device)
+        return self.graph.replay(img_l, img_r, u)
+
+    def _init(self, img_l, img_r) -> tuple[dict, np.ndarray]:
+        """Detect on this frame (the INITING step); returns its metric dict
+        and pose."""
+        self._set_state(self.init_fn(img_l, img_r))
+        h = device_get_tree({k: self.state[k] for k in ("status", "n_detected", "T_wc")})
+        self.status = int(h["status"])
+        m = {"accept": False, "init": True, "n_detected": int(h["n_detected"])}
+        return m, h["T_wc"].astype(np.float64)
+
+    def _reinit(self, img_l, img_r) -> None:
         """Fresh detection on this frame, keeping the pose chain.
 
         ``self.status`` is left as it is (LOST): the next frame steps from
         the fresh detections instead of re-initialising, which would reset
         the pose to identity (as the JAX ``System.step`` behaves).
         """
-        T_wc = self.state["T_wc"]
-        self.state = init_fn(img_l, img_r)
-        self.state["T_wc"] = T_wc
+        state = self.init_fn(img_l, img_r)
+        state["T_wc"] = self.state["T_wc"]
+        self._set_state(state)
         self.lost_count = 0
 
     def step(self, img_l: np.ndarray, img_r: np.ndarray) -> dict:
         """Process one stereo pair; returns the per-frame metric dict."""
         t0 = time.perf_counter()
         if self.state is None or self.status == frontend_mod.INITING:
-            self.state = self.init_fn(img_l, img_r)
-            self.status = int(self.state["status"])
-            m = {"accept": False, "init": True,
-                 "n_detected": int(self.state["n_detected"])}
+            m, pose = self._init(img_l, img_r)
         else:
-            self.state, metrics = self.step_fn(self.state, img_l, img_r)
-            m = _to_host(metrics)
-            self.status = int(self.state["status"])
+            m = device_get_tree(self._advance(img_l, img_r))
+            self.status = int(m.pop("status"))
+            pose = m.pop("T_wc").astype(np.float64)  # a reinit keeps it
             m["accept"] = bool(m["accept"])
             m["init"] = False
             if self.status == frontend_mod.LOST:
@@ -101,10 +136,9 @@ class System:
                 if self.lost_count >= self.max_lost_before_reinit:
                     log.warning("tracking lost %d frames; reinitializing",
                                 self.lost_count)
-                    self._reinit(self.init_fn, img_l, img_r)
+                    self._reinit(img_l, img_r)
             else:
                 self.lost_count = 0
-        pose = self.state["T_wc"].cpu().numpy().astype(np.float64)
         dt = time.perf_counter() - t0
         self.frame_times.append(dt)
         self.poses.append(pose)
@@ -143,10 +177,10 @@ class System:
 
         Per-frame metric dicts land in ``self.metrics`` (timing is the chunk
         wall clock split evenly across its frames), and LOST->reinit runs at
-        chunk granularity, as in the JAX ``run_chunked``.
+        chunk granularity, as in the JAX ``run_chunked``. A chunk is uploaded
+        once; each frame's outputs are copied into the chunk's (T, ...)
+        tensors on the device, which reach the host in one copy.
         """
-        init_fn, chunk_fn = frontend_mod.make_chunked_frontend(
-            self.vo_cfg, self.rig, device=self.device, generator=self.generator)
         buf_l: list[np.ndarray] = []
         buf_r: list[np.ndarray] = []
 
@@ -158,24 +192,26 @@ class System:
             buf_l.clear()
             buf_r.clear()
             if self.state is None:
-                self.state = init_fn(il[0], ir[0])
-                self.poses.append(self.state["T_wc"].cpu().numpy().astype(np.float64))
-                self.metrics.append({"accept": False, "init": True,
-                                     "n_detected": int(self.state["n_detected"]),
-                                     "time_s": 0.0})
+                m, pose = self._init(il[0], ir[0])
+                self.poses.append(pose)
+                self.metrics.append(dict(m, time_s=0.0))
                 self.frame_times.append(0.0)
                 il, ir = il[1:], ir[1:]
                 if il.shape[0] == 0:
                     return
             self._sync()
             t0 = time.perf_counter()
-            self.state, m = chunk_fn(self.state, il, ir)
-            m = _to_host(m)
+            n = il.shape[0]
+            out = {}
+            for t in range(n):  # the chunk's (T, ...) outputs, one host copy
+                frame = self._advance(il[t], ir[t])
+                if not out:
+                    out = {k: v.new_empty((n,) + v.shape) for k, v in frame.items()}
+                for k, v in frame.items():
+                    out[k][t].copy_(v)
+            m = device_get_tree(out)
             dt = time.perf_counter() - t0
-            n = len(m["T_wc"])
-            per_frame = dt / max(n, 1)
-            statuses = np.where(m["n_detected"] >= self.vo_cfg.min_features_detect,
-                                frontend_mod.TRACKING_GOOD, frontend_mod.LOST)
+            per_frame = dt / n
             for t in range(n):
                 self.poses.append(m["T_wc"][t].astype(np.float64))
                 self.metrics.append({
@@ -190,12 +226,12 @@ class System:
                 })
                 self.frame_times.append(per_frame)
                 self.lost_count = (self.lost_count + 1
-                                   if statuses[t] == frontend_mod.LOST else 0)
-            self.status = int(self.state["status"])
+                                   if m["status"][t] == frontend_mod.LOST else 0)
+            self.status = int(m["status"][-1])
             if self.lost_count >= self.max_lost_before_reinit:
                 log.warning("tracking lost %d frames; reinitializing (chunked)",
                             self.lost_count)
-                self._reinit(init_fn, il[-1], ir[-1])
+                self._reinit(il[-1], ir[-1])
                 self.status = int(self.state["status"])
 
         for i, (il, ir) in enumerate(frames):

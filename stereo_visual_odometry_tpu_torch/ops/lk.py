@@ -90,8 +90,7 @@ def _level_track(img_prev: torch.Tensor, img_next: torch.Tensor, pts: torch.Tens
     base = pts[:, None, None, :] + grid[None]               # (N, P, P, 2)
 
     T = interp.bilinear(img_prev, base)
-    dx = torch.tensor([1.0, 0.0], dtype=dtype, device=dev)
-    dy = torch.tensor([0.0, 1.0], dtype=dtype, device=dev)
+    dx, dy = torch.eye(2, dtype=dtype, device=dev)  # made on the device: capturable
     Ix = (interp.bilinear(img_prev, base + dx) - interp.bilinear(img_prev, base - dx)) * 0.5
     Iy = (interp.bilinear(img_prev, base + dy) - interp.bilinear(img_prev, base - dy)) * 0.5
 
@@ -222,14 +221,17 @@ def disparity_grid(xy: torch.Tensor, disp: torch.Tensor, valid: torch.Tensor,
     cy, cx = _cells(xy, cell, gh, gw)
     idx = (cy * gw + cx).long()
     v = valid.to(disp.dtype)
-    sums = torch.zeros(gh * gw, dtype=disp.dtype, device=disp.device).index_add_(
-        0, idx, disp * v)
-    cnts = torch.zeros(gh * gw, dtype=disp.dtype, device=disp.device).index_add_(0, idx, v)
+    # index_put_ with accumulate sums each cell's entries in index order, on
+    # the card too (sorted, no atomics): the same bits every run, and the
+    # same as the CPU's sequential sums. index_add_ adds atomically there.
+    zeros = lambda: torch.zeros(gh * gw, dtype=disp.dtype, device=disp.device)
+    sums = zeros().index_put_((idx,), disp * v, accumulate=True)
+    cnts = zeros().index_put_((idx,), v, accumulate=True)
     order = torch.sort(torch.where(valid, disp, torch.inf)).values
     n_valid = torch.sum(valid)
-    med = order[torch.clamp(n_valid // 2, 0, disp.shape[0] - 1)]
-    med = torch.where(n_valid > 0, med, torch.tensor(default_disp, dtype=disp.dtype,
-                                                     device=disp.device))
+    med = order.index_select(0, torch.clamp(n_valid // 2, 0, disp.shape[0] - 1)
+                             .reshape(1))[0]  # a 1-d index: no read back to the host
+    med = torch.where(n_valid > 0, med, med.new_full((), default_disp))
     grid = torch.where(cnts > 0, sums / torch.clamp(cnts, min=1.0), med)
     return grid.reshape(gh, gw)
 

@@ -3,7 +3,8 @@
 Port of ``stereo_visual_odometry_tpu/ops/pnp.py``. The JAX ``vmap`` over
 hypotheses becomes a leading batch dimension. The hypothesis draws are
 ``u`` (H, 6) uniforms: a caller may inject them (tests hand both packages
-the same JAX-drawn ``u``), otherwise they come from a ``torch.Generator``.
+the same JAX-drawn ``u``; a CUDA graph of the step takes them as an input),
+otherwise ``draw_uniforms`` draws them from a ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -118,6 +119,16 @@ def gauss_newton_pose(cam: Pinhole, T0: torch.Tensor, pts3d: torch.Tensor,
     return T
 
 
+def draw_uniforms(num_hypotheses: int, generator: torch.Generator | None = None,
+                  dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """The (num_hypotheses, 6) uniforms in [0, 1) that ``ransac_pnp`` draws
+    when it is given no ``u``; a caller that draws them outside the step
+    (``models/step_graph.py``) calls this, so both routes take the same
+    values from ``generator`` in the same order."""
+    return torch.rand((num_hypotheses, MIN_SAMPLE), generator=generator, dtype=dtype,
+                      device=device)
+
+
 def ransac_pnp(cam: Pinhole, pts3d: torch.Tensor, px: torch.Tensor,
                valid: torch.Tensor, num_hypotheses: int = 512,
                inlier_px: float = 2.0, refine_iters: int = 10,
@@ -142,8 +153,7 @@ def ransac_pnp(cam: Pinhole, pts3d: torch.Tensor, px: torch.Tensor,
     if weights is None:
         weights = torch.ones(n, dtype=dt, device=dev)
     if u is None:
-        u = torch.rand((num_hypotheses, MIN_SAMPLE), generator=generator,
-                       dtype=dt, device=dev)
+        u = draw_uniforms(num_hypotheses, generator, dt, dev)
     elif u.shape != (num_hypotheses, MIN_SAMPLE):
         raise ValueError(f"u must be {(num_hypotheses, MIN_SAMPLE)}, got {tuple(u.shape)}")
     norm2d = _normalize_pixels(cam, px)
@@ -177,8 +187,8 @@ def ransac_pnp(cam: Pinhole, pts3d: torch.Tensor, px: torch.Tensor,
     hyp_dup = torch.cat([samp_dup, torch.zeros(T_hyp.shape[0] - num_hypotheses,
                                                dtype=torch.bool, device=dev)])
     msac = torch.where(torch.isnan(msac) | hyp_dup, torch.inf, msac)
-    best = torch.argmin(msac)
-    T_out, inl_out = T_hyp[best], inl[best]
+    best = torch.argmin(msac).reshape(1)  # a 1-d index: no read back to the host
+    T_out, inl_out = T_hyp.index_select(0, best)[0], inl.index_select(0, best)[0]
 
     # Two rounds of (Gauss-Newton polish -> inlier recount).
     for _ in range(2):

@@ -108,7 +108,7 @@ def bench_sequence(n_frames):
 
 def bench_level_calls(name, frames, cam) -> list:
     """Every level call of K3 (``name='cell'``) or K4 (``'v1'``) that
-    ``System.run_chunked`` makes on ``frames`` on cuda, as (args, kw):
+    ``System.run_chunked`` makes on ``frames`` on cuda, eagerly, as (args, kw):
     ``ops/lk.py`` is handed a stand-in module that records each call and
     passes it on."""
     import types
@@ -128,7 +128,8 @@ def bench_level_calls(name, frames, cam) -> list:
     setattr(lk, module, types.SimpleNamespace(**{fn.__name__: record}))
     try:
         vo = VOConfig(lk_kernel=name, height=H, width=W, max_features=1024)
-        system.System(RunConfig(camera=cam, vo=vo), device="cuda").run_chunked(
+        # Eager (graph=False): a graph's replays make no Python calls to record.
+        system.System(RunConfig(camera=cam, vo=vo), device="cuda", graph=False).run_chunked(
             frames, chunk=len(frames))
     finally:
         setattr(lk, module, saved)

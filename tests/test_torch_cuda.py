@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA kernels K1-K8 against their plain
-versions, and the LK (dense and cell) and ORB slices on cuda against the
-same slices on the CPU.
+versions, the LK (dense and cell) and ORB slices on cuda against the
+same slices on the CPU, and the step's CUDA graph (``models/step_graph.py``)
+against the eager step.
 
 Marked ``cuda``; each skips without a GPU (decided inside the test). This
 file imports neither JAX nor the JAX package, so it runs on a machine with
@@ -17,7 +18,10 @@ one iteration earlier or later, which moves it by less than eps). K7 exact
 products in another order). The slices:
 accept flags equal and poses within 1e-3 m / 1e-4, with the same RANSAC
 draws fed to both devices — the GPU sums in another order than the CPU
-(TF32 is off), nothing else differs.
+(TF32 is off), nothing else differs. The graph: its replay equals the eager
+step on the card bit for bit (the same kernels on the same inputs, the same
+draws from the generator), and the launch counts it tallies are the kernels
+a profiled replay runs.
 """
 import numpy as np
 import pytest
@@ -30,7 +34,7 @@ from stereo_visual_odometry_tpu_torch.ops import (cuda_stream, lk_block, lk_cell
 from stereo_visual_odometry_tpu_torch.ops import pnp as tpnp
 from stereo_visual_odometry_tpu_torch.probes import lk_breakdown
 from stereo_visual_odometry_tpu_torch.probes import roll as probe_roll
-from stereo_visual_odometry_tpu_torch.utils import synthetic
+from stereo_visual_odometry_tpu_torch.utils import profiling, synthetic
 from stereo_visual_odometry_tpu_torch.utils.config import CameraConfig, RunConfig
 
 pytestmark = pytest.mark.cuda
@@ -501,17 +505,18 @@ def _slice_on_both_devices(monkeypatch, seq, vo, chunk):
                                         cy=rp["cy"], baseline=rp["baseline"]), vo=vo)
     n = len(seq["images_l"])
     draws = np.random.default_rng(0).random((n - 1, 128, 6)).astype(np.float32)
-    orig = tpnp.ransac_pnp
     frames = list(zip(seq["images_l"], seq["images_r"]))
     runs = {}
     for device in ("cpu", "cuda"):
+        # The draws of both routes: ransac_pnp's own on the CPU, System's
+        # outside the graph on cuda.
         queue = [torch.from_numpy(u).to(device) for u in draws]
-        monkeypatch.setattr(tpnp, "ransac_pnp",
-                            lambda *a, u=None, **kw: orig(*a, u=queue.pop(0), **kw))
+        monkeypatch.setattr(tpnp, "draw_uniforms", lambda *a, **kw: queue.pop(0))
         for fn in COUNTERS:
             fn.launches = 0
         sys_ = System(cfg, device=device)
         traj = sys_.run_chunked(frames, chunk=chunk)
+        assert not queue
         runs[device] = (sys_, traj, *(fn.launches for fn in COUNTERS))
     (s_c, t_c, *n_c), (s_g, t_g, *n_g) = runs["cpu"], runs["cuda"]
     assert n_c == [0, 0, 0, 0]
@@ -549,3 +554,154 @@ def test_orb_slice_on_cuda_matches_cpu(monkeypatch):
                   num_hypotheses=128, min_features_track=8, min_inlier_rate=0.3)
     # Per frame (the init included): two images x 4 levels, one K1 and one K2 each.
     assert _slice_on_both_devices(monkeypatch, seq, vo, chunk=4) == [8 * 8, 8 * 8, 0, 0]
+
+
+SMALL = dict(height=192, width=256, max_features=256, num_hypotheses=128,
+             min_features_track=8, min_inlier_rate=0.3)
+GRAPH_PATHS = {  # VOConfig, and the kernels one step launches
+    "dense": (SMALL, {"extract_windows_int": 27}),
+    "cell": (dict(SMALL, lk_kernel="cell"),
+             {"extract_windows_int": 1, "level_track_cell": 6}),
+    "v1": (dict(SMALL, lk_kernel="v1"), {"extract_windows_int": 1, "level_track_v1": 6}),
+    "no_sweep": (dict(SMALL, lk_sweep=False), {"extract_windows_int": 45}),
+    "orb": (dict(SMALL, mode="orb", height=128, width=320, orb_levels=4),
+            {"extract_windows_int": 8, "extract_patches": 8}),
+}
+KERNEL_NAMES = {"extract_windows_int": "extract_windows_int_kernel",  # counter -> kernel
+                "extract_patches": "extract_patches_kernel",
+                "level_track_cell": "lk_level_kernel", "level_track_v1": "lk_level_kernel"}
+
+
+def _graph_sequence(vo, n_frames=8):
+    seq = synthetic.render_sequence(n_frames=n_frames, h=vo["height"], w=vo["width"],
+                                    fx=300.0)
+    if vo.get("mode") == "orb":  # sensor noise: no flat regions (test_torch_system.py)
+        rng = np.random.default_rng(1)
+        for k in ("images_l", "images_r"):
+            seq[k] = (seq[k] + rng.normal(0, 1.0, seq[k].shape)).astype(np.float32)
+    rp = seq["rig"]
+    cfg = RunConfig(camera=CameraConfig(fx=rp["fx"], fy=rp["fy"], cx=rp["cx"],
+                                        cy=rp["cy"], baseline=rp["baseline"]),
+                    vo=VOConfig(**vo))
+    return cfg, seq, list(zip(seq["images_l"], seq["images_r"]))
+
+
+def _assert_runs_equal(sys_g, traj_g, sys_e, traj_e):
+    """Graph and eager runs bit for bit: poses, every metric, the status and
+    the generator (the same draws were taken)."""
+    assert np.array_equal(traj_g, traj_e)
+    assert len(sys_g.metrics) == len(sys_e.metrics)
+    for mg, me in zip(sys_g.metrics, sys_e.metrics):
+        assert mg.keys() == me.keys()
+        for k in mg.keys() - {"time_s"}:
+            assert np.array_equal(mg[k], me[k]), k
+    assert sys_g.status == sys_e.status
+    assert torch.equal(sys_g.generator.get_state(), sys_e.generator.get_state())
+
+
+def test_disparity_grid_is_deterministic_on_cuda():
+    """``lk.disparity_grid`` (the ``lk_sweep=False`` prior) sums each cell in
+    index order on the card: the same bits on every call, and the CPU's."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.ops import lk
+    rng = np.random.default_rng(8)
+    n = 1024
+    xy = torch.from_numpy((rng.random((n, 2)) * [1279, 383]).astype(np.float32))
+    disp = torch.from_numpy((rng.random(n) * 60).astype(np.float32))
+    valid = torch.from_numpy(rng.random(n) > 0.2)
+    want = lk.disparity_grid(xy, disp, valid, 384, 1280)
+    args = [t.cuda() for t in (xy, disp, valid)]
+    for _ in range(20):
+        assert torch.equal(lk.disparity_grid(*args, 384, 1280).cpu(), want)
+
+
+@pytest.mark.parametrize("method", ["step", "run_chunked"])
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_graph_replay_matches_eager(path, method):
+    """8 frames through ``System`` with the graph and without it (the same
+    seed, so the same draws): equal bit for bit, through ``step`` (``run``)
+    and ``run_chunked`` (chunks of 3: one graph serves the short last one)."""
+    need_cuda()
+    cfg, _, frames = _graph_sequence(GRAPH_PATHS[path][0])
+    runs = []
+    for graph in (True, False):
+        sys_ = System(cfg, device="cuda", graph=graph)
+        traj = sys_.run(frames) if method == "step" else sys_.run_chunked(frames, chunk=3)
+        runs += [sys_, traj]
+    assert runs[0].graph is not None and runs[2].graph is None
+    _assert_runs_equal(*runs)
+    assert sum(m["accept"] for m in runs[0].metrics) >= 5
+
+
+@pytest.mark.parametrize("method", ["step", "run_chunked"])
+def test_graph_reinit_after_lost_matches_eager(method):
+    """LOST->reinit under the graph, with blank frames as in
+    ``test_torch_system.py``: the fresh state goes into the graph's buffers
+    (the pose chain kept) and tracking comes back, as eagerly."""
+    need_cuda()
+    cfg, seq, frames = _graph_sequence(SMALL, n_frames=4)
+    blank = np.zeros_like(seq["images_l"][0])
+    frames = frames[:2] + [(blank, blank)] * 3 + frames[2:]
+    runs = []
+    for graph in (True, False):
+        sys_ = System(cfg, device="cuda", graph=graph)
+        sys_.max_lost_before_reinit = 2 if method == "step" else 3
+        traj = sys_.run(frames) if method == "step" else sys_.run_chunked(frames, chunk=2)
+        runs += [sys_, traj]
+    _assert_runs_equal(*runs)
+    sys_g, traj = runs[:2]
+    np.testing.assert_allclose(traj[2:5], np.broadcast_to(traj[1], (3, 4, 4)), atol=1e-5)
+    assert sys_g.metrics[-1]["accept"] and sys_g.status == 1
+    assert sys_g.state is sys_g.graph.state  # a reinit copies into the buffers
+
+
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_graph_replay_launches_tallied_kernels(path):
+    """The capture's launches per replay are the path's kernels per step;
+    a replay adds exactly those to the counters, and a profiled replay runs
+    exactly that many of each kernel. A profiler session that recorded no
+    device work is taken again, up to three times (see
+    ``test_k3_k4_wrapper_call_is_one_kernel``)."""
+    need_cuda()
+    vo, per_step = GRAPH_PATHS[path]
+    cfg, _, frames = _graph_sequence(vo, n_frames=3)
+    sys_ = System(cfg, device="cuda")
+    sys_.run(frames[:2])  # init, then the capture and the first replay
+    assert sys_.graph.per_replay == per_step
+    for fn in COUNTERS:
+        fn.launches = 0
+    sys_.step(*frames[2])
+    assert {fn.__name__: fn.launches for fn in COUNTERS if fn.launches} == per_step
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profiling.trace(None) as prof:
+            sys_.graph.launch()
+            torch.cuda.synchronize()
+        names = profiling.device_activity(prof)["names"]
+        if names:
+            break
+    want, ran = {}, {}
+    for name, n in per_step.items():
+        want[KERNEL_NAMES[name]] = want.get(KERNEL_NAMES[name], 0) + n
+    for kernel in set(KERNEL_NAMES.values()):
+        n = sum(c for op, c in names.items() if kernel in op)
+        if n:
+            ran[kernel] = n
+    assert ran == want, names
+
+
+def test_graph_rejects_another_shape_or_dtype():
+    """A pair of another shape or dtype than the captured one raises; the
+    graph still replays the captured shape afterwards."""
+    need_cuda()
+    cfg, seq, frames = _graph_sequence(SMALL, n_frames=4)
+    sys_ = System(cfg, device="cuda")
+    sys_.run(frames[:2])
+    il, ir = frames[3]
+    with pytest.raises(ValueError, match="captured"):
+        sys_.step(il[:, :128], ir[:, :128])
+    with pytest.raises(ValueError, match="captured"):
+        sys_.step(il.astype(np.float64), ir.astype(np.float64))
+    with pytest.raises(ValueError, match="pair differs"):
+        sys_.step(il, ir[:, :128])
+    assert sys_.step(*frames[2])["accept"]
