@@ -8,7 +8,9 @@ tracker and prior of ``VOConfig``, and ORB.
 Phases (each prints one line; any failure exits non-zero):
   1. device: needs ``torch.cuda.is_available()`` (no CPU path); prints
      ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``;
-  2. build the kernels (``csrc/*.cu``, one nvcc per source, all at once);
+  2. build the kernels (``csrc/*.cu``, one nvcc per source, all at once)
+     and K7's binding (``csrc/roll_binding.cpp``, the host compiler against
+     PyTorch's headers), each with its seconds (cold: nothing built yet);
   3. K1 (``csrc/extract_windows.cu``) against its plain PyTorch version at
      the LK path's shapes, ORB's 3x3 subpixel reads, the XLA tracker's
      64x64 / 36x36 windows, and ragged N (0, 1, 7, 1023) at S = 24, (5, 7)
@@ -47,15 +49,23 @@ Phases (each prints one line; any failure exits non-zero):
      frame's motion out of the chain; aligning from frame 1 removes that
      offset. The bounds sit above the JAX package's numbers on the same
      generator at half this resolution (``tests/torch_lk_branch_reference.py``);
- 10. K5 and K6 (``csrc/lk_block.cu``, a warp per point) against their
-     plain versions (K3's and K4's) on phase 5's inputs, K6 with every point
-     tracked (it takes no mask): phase 5's criteria, and the mean iterations
-     and reloads per tracked point within 0.01 of the plain version's; the
-     same against the K3 and K4 kernels; N = 0 as in phase 5;
- 11. K7 (``csrc/roll.cu``) against its plain version (``torch.roll``) over
-     the roll probe's grid, (rows, 256) for rows 16..128 on both axes, with
-     the amounts 0, 1, 3, 7, 9 / 100, -1, the axis length and + 5: max abs
-     error 0;
+ 10. K5 and K6 (``csrc/lk_block.cu``, a warp per point; K5 with staged
+     regions and K3's fused tail) against their plain versions (K3's and
+     K4's) on phase 5's inputs, K6 with every point tracked (it takes no
+     mask): phase 5's criteria, and the mean iterations and reloads per
+     tracked point within 0.01 of the plain version's; the same against the
+     K3 and K4 kernels; K5 again with guesses 11 px off the motion on LK
+     level 1, so that its windows leave the staged region (more than one
+     off-region reload per tracked point), against its plain version and
+     K3; N = 0 as in phase 5;
+ 11. K7 (``csrc/roll.cu``, launched through its binding) against its plain
+     version (``torch.roll``) over the roll probe's grid, (rows, 256) for
+     rows 16..128 on both axes, with the amounts 0, 1, 3, 7, 9 / 100, -1, the
+     axis length and + 5 (its 16-byte kernel), and on its one-element kernel
+     (an odd width, a view off 16-byte alignment): max abs error 0; an
+     output that is not its input,
+     a CUDA graph of K7 calls equal to the eager calls, and a float64 or a
+     3-D ``x`` refused with a ValueError and no launch counted;
  12. K8 (``csrc/lk_block.cu``, ``svo_lk_block_split``) at the breakdown
      probe's operating point ((408, 1408), N = 1024): ``tmpl`` and
      ``reload`` (1 and 3 rounds) within 1e-4 relative of their plain
@@ -73,14 +83,16 @@ Phases (each prints one line; any failure exits non-zero):
      (``F.grid_sample`` nearest for K1; bilinear with border padding on the
      unpadded image for K2; ``torch.roll`` for K7,
      ``probes/patch_timing.py``), with the wrappers' host time per call and,
-     on a line of its own, K1's wrapper split piece by piece; K3 and K4
-     through ``probes/lk_timing.py`` at two operating points, on a line of
+     on lines of their own, K1's and K7's wrapper split piece by piece, and
+     the graph time of a one-row K7 call (K7's practical floor); K3, K4 and
+     K5 through ``probes/lk_timing.py`` at two operating points, on a line of
      their own: the kernel alone (the bare C entry) in a graph, its template
      phase (``iters=0``) and one iteration, the wrapper's host time, the
      iterations and reloads per point, and the share of reloads served from
      the staged region by margin; and over every level call of the first 8
-     bench frames (recorded from ``System.run_chunked``), the kernel alone
-     in a graph, the iterations per tracked point and the staged share;
+     bench frames (recorded from ``System.run_chunked``; K5 on K3's calls),
+     the kernel alone in a graph, the iterations per tracked point and the
+     staged share;
  15. eager against graph: each slice of phases 6-9 run by ``System`` with
      ``graph=False`` and then with the graph, in turns in this call: both
      ms/frame, ATE, accept and n_tracked, which must be equal, and whether
@@ -440,7 +452,7 @@ def main() -> int:
              "block": lk_block.level_track_block, "v2": lk_v2.level_track_v2}
     masked = {"cell": True, "v1": True, "block": True, "v2": False}  # takes ``active``
 
-    # 2. Build the kernels ---------------------------------------------------
+    # 2. Build the kernels and K7's binding ----------------------------------
     lib_path = native.library_path()
     how = "found already built" if lib_path.exists() else "built with nvcc"
     t0 = time.perf_counter()
@@ -448,7 +460,14 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
              if "registers" in ln or "Compiling entry" in ln]
-    print(f"[2/16] kernel library {lib_path.name} {how} in {build_s:.2f}s; "
+    ext_path = native.extension_path("roll_binding")
+    how_ext = "found already built" if ext_path.exists() else "built"
+    t0 = time.perf_counter()
+    roll.launcher()
+    bind_s = time.perf_counter() - t0
+    cxx = native.extension_command("roll_binding")[0]
+    print(f"[2/16] kernel library {lib_path.name} {how} in {build_s:.2f}s; K7 binding "
+          f"{ext_path.name} {how_ext} with {cxx} (no ninja) in {bind_s:.2f}s; "
           f"ptxas: {'; '.join(ptxas)}")
 
     # 3. K1 vs plain at the LK and ORB shapes -------------------------------
@@ -606,6 +625,30 @@ def main() -> int:
                 same_iters=True)
             lk_err[name] = max(lk_err[name], dmax)
             lines.append(f"{line}; {line_old}")
+    # K5's windows off its staged region: a smooth zero-mean pair (periods
+    # 40-100 px, so LK converges from 11 px away) on LK level 1, guesses
+    # STAGE_MARGIN + 4 px off the motion.
+    hp, wp = LK_PADDED[1]
+    shift = (2.0, -1.0)
+    prev, nxt = lk_timing.textured_pair(hp, wp, shift, seed=210, periods=(40.0, 100.0),
+                                        mean=0.0)
+    pts, guess, active = lk_timing.lk_level_inputs(hp, wp, seed=310)
+    guess = (guess / 3 + torch.tensor([shift[0] + lk_block.STAGE_MARGIN + 4, shift[1]],
+                                      device="cuda")).contiguous()
+    kw = dict(win=WIN, iters=30, eps=0.01, search_radius=20, pad=PAD, active=active)
+    got = level_call(torch, lk_fn["block"], prev, nxt, pts, guess, **kw)
+    plain_off = level_call(torch, plain_lk["block"], prev, nxt, pts, guess, **kw)
+    share = lk_v1.staged_share(pts, guess, plain_off[2], hp, wp, pad=PAD)
+    off = (1.0 - share) * len(plain_off[2]["corners"]) / int(active.sum())
+    check(off > 1.0, f"K5 off the region: {off} off-region reloads per tracked point <= 1")
+    dmax, line = compare_levels(torch, f"block off the region {(hp, wp)}", got, plain_off,
+                                active, 0.01, shift, same_iters=True)
+    _, line_old = compare_levels(torch, "against the cell kernel", got,
+                                 level_call(torch, lk_fn["cell"], prev, nxt, pts, guess, **kw),
+                                 active, 0.01, shift, same_iters=True)
+    lk_err["block"] = max(lk_err["block"], dmax)
+    lines.append(f"{line} ({off:.2f} off-region reloads per tracked point, staged share "
+                 f"{share:.3f}); {line_old}")
     empty = [no_points(torch, name, kernels, lk_bool, lambda name=name: lk_fn[name](
         args[0], args[1], args[2][:0], args[3][:0], pad=PAD)) for name in ("block", "v2")]
     print(f"[10/16] K5 (block) and K6 (v2) vs plain (K3's and K4's plain versions) and "
@@ -627,10 +670,42 @@ def main() -> int:
                 check(err == 0.0, f"K7 disagrees with torch.roll at axis {axis}, rows "
                       f"{rows}, amount {amt}: max abs err {err}")
                 k7_err, k7_cases = max(k7_err, err), k7_cases + 1
-    print(f"[11/16] K7 vs plain (torch.roll) over {k7_cases} cases: axis 0 and 1, "
-          f"({probe_roll.ROWS[0]}..{probe_roll.ROWS[-1]}, {probe_roll.COLS}), amounts "
-          f"0, 1, 3, 7, 9 (axis 0) / 100 (axis 1), -1, the axis length and + 5: max abs "
-          f"err {k7_err} (tolerance 0: a copy)")
+    # The one-element kernel: an odd width, and a view off 16-byte alignment.
+    flat = torch.rand(129 * 256, generator=g, device="cuda")
+    for x in (torch.rand((37, 255), generator=g, device="cuda"),
+              flat[1:1 + 128 * 256].view(128, 256)):
+        for axis in (0, 1):
+            for amt in (-5, -4, 3, 4, 9, 300):
+                a = torch.tensor([[amt]], dtype=torch.int32, device="cuda")
+                err = float((roll.roll(x, a, axis) - roll.roll_reference(x, a, axis)).abs().max())
+                check(err == 0.0, f"K7 disagrees with torch.roll at {tuple(x.shape)} (aligned "
+                      f"{x.data_ptr() % 16 == 0}), axis {axis}, amount {amt}: max abs err {err}")
+                k7_err, k7_cases = max(k7_err, err), k7_cases + 1
+    # The output is new memory; a graph of K7 calls replays them exactly; bad
+    # inputs raise before any launch.
+    x = torch.rand((128, probe_roll.COLS), generator=g, device="cuda")
+    amts = [torch.tensor([[amt]], dtype=torch.int32, device="cuda") for amt in (9, -1, 300)]
+    out = roll.roll(x, amts[0], 0)
+    check(out.data_ptr() != x.data_ptr() and not torch.equal(out, x),
+          "K7's output aliases its input")
+    calls = lambda: [roll.roll(x, amts[i % 3], i % 2) for i in range(6)]
+    graph_eq = timing.replays_equal(calls)
+    check(graph_eq, "K7 replayed in a CUDA graph differs from its eager calls")
+    refused = []
+    for bad_x in (x.double(), x[None]):
+        before = roll.roll.launches
+        try:
+            roll.roll(bad_x, amts[0], 0)
+        except ValueError as e:
+            refused.append(str(e).split(",")[0])
+        check(roll.roll.launches == before, "K7 counted a launch for a refused input")
+    check(len(refused) == 2, f"K7 took a float64 or a 3-D input: {refused}")
+    print(f"[11/16] K7 through its binding vs plain (torch.roll) over {k7_cases} cases: axis "
+          f"0 and 1, ({probe_roll.ROWS[0]}..{probe_roll.ROWS[-1]}, {probe_roll.COLS}), amounts "
+          f"0, 1, 3, 7, 9 (axis 0) / 100 (axis 1), -1, the axis length and + 5, and on the "
+          f"one-element kernel (37, 255) and a (128, 256) view 4 bytes off alignment: max abs "
+          f"err {k7_err} (tolerance 0: a copy); output not its input; a CUDA graph of 6 "
+          f"calls equal to the eager calls: {graph_eq}; refused: {refused}")
 
     # 12. K8 vs plain at the breakdown probe's operating point -----------------
     probe_in = probe_block.make_inputs("cuda")
@@ -716,6 +791,7 @@ def main() -> int:
     # (probes/patch_timing.py); the plain versions and the bounds here.
     pt = patch_timing.measure(patch, roll, timing)
     host = patch_timing.host_split(patch, native, cuda_stream.current_stream)
+    k7_host = patch_timing.k7_host_split(roll)
     hp, wp, S = patch_timing.K1_SHAPE
     img, corners = k1_inputs(hp, wp, S, seed=S)
     _, c = patch_timing.k1_library(img, corners, S)
@@ -739,8 +815,8 @@ def main() -> int:
     # operating point): the kernel alone, its template phase and one
     # iteration in a graph, the wrapper in a graph, back to back and on the
     # host, iterations, reloads and the staged share; K5 and K6 here.
-    lkt = lk_timing.measure({"lk_cell": lk_cell, "lk_v1": lk_v1, "native": native,
-                             "make_inputs": probe_block.make_inputs}, timing,
+    lkt = lk_timing.measure({"lk_cell": lk_cell, "lk_v1": lk_v1, "lk_block": lk_block,
+                             "native": native, "make_inputs": probe_block.make_inputs}, timing,
                             patch_timing.host_us, cuda_stream.current_stream,
                             bench=(frames[:lk_timing.BENCH_FRAMES], cam))
     hp, wp = LK_PADDED[0]
@@ -759,7 +835,7 @@ def main() -> int:
         b_ms, b_by = lk_level_bound(torch, st_k, st_p["corners"], pts,
                                     active if masked[name] else torch.ones_like(active),
                                     hp, wp, "cell" if name in ("cell", "block") else "v1",
-                                    fused=name in ("cell", "v1"))
+                                    fused=name != "v2")
         if name in lkt["smoke"]:
             lk_t[name] = dict(lkt["smoke"][name], plain_ms=plain_time(plain, iters=5))
         else:
@@ -799,7 +875,7 @@ def main() -> int:
                 f"{us(t['library_graph_ms'])} (max diff {t['library_max_diff']}), bound "
                 f"{b_ms * 1e3:.3f} us ({b_by}), wrapper host time {t['host_us']:.2f} us")
 
-    print("[14/16] K3/K4 (probes/lk_timing.py; graphs of "
+    print("[14/16] K3/K4/K5 (probes/lk_timing.py; graphs of "
           f"{lk_timing.GRAPH_CALLS} calls; staged share at margins {lk_timing.MARGINS}, "
           f"shipped {lk_v1.STAGE_MARGIN}): " + "; ".join(
               f"{lk_name[k]} {point}: kernel alone {us(t['kernel_graph_ms'])}, template "
@@ -809,13 +885,19 @@ def main() -> int:
               f"{t['reloads']}, staged share {t['staged_share']}"
               for point in ("smoke", "probe") for k, t in lkt[point].items())
           + f"; on the first {lk_timing.BENCH_FRAMES} bench frames: " + "; ".join(
-              f"{lk_name[k]} {b['calls']} calls, kernel alone {us(b['kernel_graph_ms'])} "
+              f"{lk_name[k]} {b['calls']} calls ({b['recorded_on']}'s), kernel alone "
+              f"{us(b['kernel_graph_ms'])} "
               f"(largest {us(b['kernel_graph_ms_max'])}), iterations {b['iters']}, staged "
               f"share {b['staged_share']}"
               for k, b in lkt["bench"].items()))
     print("[14/16] host time per K1 wrapper call, us (perf_counter over "
           f"{patch_timing.HOST_CALLS} calls, no sync): "
           + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
+    print("[14/16] host time per K7 call, us (the same way): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in k7_host.items())
+          + f"; in a graph of {patch_timing.GRAPH_CALLS} calls, in turns: one row "
+          f"{us(pt['k7']['one_row_graph_ms'])} (K7's practical floor), "
+          f"{patch_timing.K7_SHAPE} {us(pt['k7']['graph_ms_beside_one_row'])}")
     print(f"[14/16] CUDA events, {patch_timing.B2B_CALLS} calls each (5 for the LK plain "
           f"versions), and CUDA graphs of {patch_timing.GRAPH_CALLS} calls: "
           + patch_line(f"K1 S={S} N={N_POINTS} on {patch_timing.K1_SHAPE[:2]}", "k1",
@@ -890,14 +972,18 @@ def main() -> int:
         if name in lkt["bench"]:
             report[-1].update(probe_point=lkt["probe"][name], bench_point=lkt["bench"][name])
     report.append({"name": "roll", "route": "cuda", "source": src + "roll.cu",
+                   "binding": src + "roll_binding.cpp", "binding_build_s": bind_s,
                    "replaces": "scripts/probe_roll.py:12", "max_abs_err": k7_err,
                    **patch_t["k7"], "plain_ms": k7_plain, "bound_ms": k7_bound,
-                   "bound_by": k7_by, "host_us": pt["k7"]["host_us"]})
+                   "bound_by": k7_by, "host_us": pt["k7"]["host_us"],
+                   "one_row_graph_ms": pt["k7"]["one_row_graph_ms"],
+                   "host_split_us": k7_host})
     # K8's headline numbers are the reload variant with 3 rounds (the JAX
     # probe's default); every variant is listed under "variants".
     report.append({"name": "level_track_block_split", "route": "cuda",
                    "source": src + "lk_block.cu",
                    "replaces": "scripts/probe_lk_breakdown.py:42", "max_abs_err": k8_err,
+                   "full_variant": "K5's kernel (lk_block_cell_kernel) with the raw tail",
                    "max_rel_err": max(k8[lb]["rel_err"] for lb in split_labels),
                    **k8_t["reload3"], "library_ms": None, "variants": k8_t,
                    "split_graph_ms": k8_split})

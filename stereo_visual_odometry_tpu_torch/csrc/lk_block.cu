@@ -12,47 +12,76 @@
 //       42-104, pallas_call at :111), entry svo_lk_block_split: K5 split into
 //       `tmpl` (template phase only), `reload` (template, then `rounds`
 //       forced window reloads with their 8 dots at corner
-//       floor(p - r + round), no iterations) and `full` (= K5).
-// The arithmetic per point is csrc/lk_level.cu's (K3/K4): the template T and
+//       floor(p - r + round), no iterations) and `full`, which the TPU probe
+//       builds with K5's own factory (probe_lk_breakdown.py:44-46): here K5's
+//       kernel with the raw tail below.
+// The arithmetic per point is csrc/lk_level.cu's (K3/K4): the template and
 // its central-difference gradients from a (win+3)^2 window of `prev` blended
 // at the point's fraction, the 2x2 normal matrix, the min-eigenvalue gate and
 // its inverse; then the flow delta from the incoming guess until
 // |delta|^2 <= eps2 or `iters` iterations. The JAX kernels advance BLK = 8
 // points together as (8, 1) vectors; per point that is the same sequence of
-// iterations, which is what is kept here. K8's `tmpl`/`reload` outputs are
-// checksums: flow = (acc [+ the last round's first dot], acc), ok = acc, with
-// acc = g00 + g01 + g11 + tIx + tIy, and every round's 8 dots go to `dots`
-// (N, rounds, 8) so that no round can be dropped as dead code.
+// iterations, which is what is kept here.
 //
 // What bounds it on Hopper: neither bytes nor flops (a level call at N=1024
-// moves ~3 MB of distinct pixels and does ~50 MFLOP); the cost is each
-// point's serial chain of reductions. K3/K4 spend CTA barriers and a
-// shared-memory round trip on every reduction of their two-warp CTA. Here a
-// warp owns a point, so:
-//   * every reduction is a __shfl_xor_sync butterfly, after which every lane
-//     holds bit-identical totals; each loop condition is then uniform within
-//     the warp, and there is no __syncthreads() anywhere;
-//   * __syncwarp() orders a warp's phases on its own slice of shared memory
-//     (window buffer, template field, T, Ix, Iy: (win+3)^2 + (win+2)^2 +
-//     3 win^2 floats, 9.7 KB at win = 21);
-//   * the price: a lane handles ceil(441/32) = 14 window elements per
-//     reduction, against 7 for K3/K4's 64 threads;
-//   * kPointsPerCta = 4: 39 KB of shared memory per CTA (no opt-in above
-//     48 KB at win = 21), and N = 1024 points make 256 CTAs that spread over
-//     all 132 SMs at once (8 points would make 128 CTAs and leave 4 SMs
-//     idle); a CTA holding a slow point keeps only 4 slices resident.
+// moves ~3 MB of distinct pixels and does ~50 MFLOP); the 1024 points fit
+// the 132 SMs in one wave, so a call lasts as long as its slowest point's
+// serial chain of window reads and reductions. A warp owns a point, so every
+// reduction is a __shfl_xor_sync butterfly after which every lane holds
+// bit-identical totals (each step adds the same two values in either order):
+// each loop condition is uniform within the warp, there is no
+// __syncthreads() anywhere, and __syncwarp() orders a warp's phases on its
+// own slice of shared memory. The price: a lane handles ceil(441/32) = 14
+// window elements per reduction, against 7 for K3/K4's two warps.
+//
+// K5 (lk_block_cell_kernel) adds what K3 has:
+//   * staged regions: each warp issues one round of 4-byte cp.async copies
+//     for the (win+3)^2 template window of `prev` and a region of `next` of
+//     (win+1+2*kMargin)^2 pixels around the window at the guess (K3's
+//     kMargin = 7: 36^2 at win 21), so the two device-memory latencies
+//     overlap and are paid once. A later window inside the region is read in
+//     place; one that leaves it is read from device memory into the
+//     template's buffer, each lane's loads issued together (read_window), so
+//     that a reload off the region costs one device-memory latency. The
+//     pixels are the same either way, so are the values;
+//   * per point 2 win^2 + (win+3)^2 + region + (win+2)^2 floats (13.1 KB at
+//     win 21): the gradients as float2 (one 8-byte read per element and
+//     reload), the window buffer, the region, the template field; the
+//     template T itself is never read again (its dots are summed in the
+//     template phase). kCellPointsPerCta = 2 of them per CTA (26 KB; 2 beat
+//     4 by ~7% on the bench frames' level calls, PERF.md), with the opt-in
+//     above 48 KB for larger windows;
+//   * element loops walk their (i, j) with svo::Walk, no division per
+//     element; the dot loop is unrolled by 4 so that a lane's shared-memory
+//     reads overlap;
+//   * the tail of the JAX wrapper in the kernel, as K3's: flow = guess +
+//     delta, ok = gate && |delta| <= search_radius on both axes, `active` read
+//     as the caller's bool bytes (null: all active), the statistics written
+//     only when `stats` is not null. A level call is one node. K8 `full`
+//     launches the same kernel with the raw tail: flow = delta, ok = the gate
+//     as 0/1 float32, every point tracked.
+// K6 and K8's `tmpl`/`reload` run the first design's template
+// (lk_block_kernel): a plain strided read of every window, e / side per
+// element, a float32 mask, the raw delta and gate, the statistics always
+// written. K8's `tmpl`/`reload`
+// outputs are checksums: flow = (acc [+ the last round's first dot], acc),
+// ok = acc, with acc = g00 + g01 + g11 + tIx + tIy, and every round's 8 dots
+// go to `dots` (N, rounds, 8) so that no round can be dropped as dead code.
+//
 // The Mosaic shapes of the TPU kernels (aligned (8, 128) block loads plus two
 // rolls, the (BLK*P, 128) scratch with iota masks, the SMEM scalar round
 // trips, the N % 8 pad) are not the op and are dropped: callers' clips keep
 // every window in bounds, so a window is a plain strided read, and any N
 // works. IEEE floorf/sqrtf/division (no fast math). Clip bounds against the
 // padded extents as in JAX: template hp-win-3 / wp-win-3, reload hp-win-1 /
-// wp-win-1. Inactive points (active <= 0; K5 and K8 `full` only) return flow
-// 0, ok 0, no iterations. Launches on the caller's stream, allocates nothing,
-// does not synchronise, and returns cudaGetLastError().
+// wp-win-1. Inactive points return delta 0 (flow = guess), ok 0, no
+// iterations. Launches on the caller's stream, allocates nothing, does not
+// synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "patch_common.cuh"
 
@@ -62,8 +91,9 @@ constexpr int kPointsPerCta = 4;
 constexpr int kThreads = 32 * kPointsPerCta;
 constexpr unsigned kWarp = 0xffffffffu;
 
-// kCell: K5 (and K8 `full`); kIter: K6; kTmpl / kReload: K8's split variants.
-enum Mode { kCell, kIter, kTmpl, kReload };
+// The first design's template: kIter: K6; kTmpl / kReload: K8's split
+// variants.
+enum Mode { kIter, kTmpl, kReload };
 
 // Butterfly sums over the warp: every lane ends with the same totals (each
 // step adds the same two values in either order).
@@ -138,8 +168,7 @@ lk_block_kernel(const float* __restrict__ prev, const float* __restrict__ next,
   const int warp = threadIdx.x >> 5;
   const int k = blockIdx.x * kPointsPerCta + warp;
   if (k >= n) return;  // the whole warp: nothing waits on it
-  constexpr bool kTracks = kMode == kCell || kMode == kIter;
-  if (kTracks && !(active[k] > 0.0f)) {
+  if (kMode == kIter && !(active[k] > 0.0f)) {
     if (lane == 0) {
       flow[2 * k] = 0.0f;
       flow[2 * k + 1] = 0.0f;
@@ -246,47 +275,22 @@ lk_block_kernel(const float* __restrict__ prev, const float* __restrict__ next,
     load_window(next, wp, iy, ix, s1, buf, lane);
     __syncwarp();
     ++reloads;
-    if constexpr (kMode == kCell) {
-      float s[8];
-      cell_dots(buf, Ix, Iy, win, lane, s);
-      const float iyf = static_cast<float>(iy), ixf = static_cast<float>(ix);
-      bool stay = true;
-      while (running && it < iters && stay) {
-        const float fy = (py + gy0 + vy - rf) - iyf;
-        const float fx = (px + gx0 + vx - rf) - ixf;
-        const float wy0 = 1.0f - fy, wx0 = 1.0f - fx;
-        const float wIx = wy0 * wx0 * s[0] + wy0 * fx * s[1] + fy * wx0 * s[2] +
-                          fy * fx * s[3];
-        const float wIy = wy0 * wx0 * s[4] + wy0 * fx * s[5] + fy * wx0 * s[6] +
-                          fy * fx * s[7];
-        const float b0 = tIx - wIx, b1 = tIy - wIy;
-        const float dx = inv00 * b0 + inv01 * b1;
-        const float dy = inv01 * b0 + inv11 * b1;
-        vx += dx;
-        vy += dy;
-        running = dx * dx + dy * dy > eps2;
-        stay = floor_clip(py + gy0 + vy - rf, hp - win - 1) == iy &&
-               floor_clip(px + gx0 + vx - rf, wp - win - 1) == ix;
-        ++it;
-      }
-    } else {
-      const float fy = br - static_cast<float>(iy);
-      const float fx = bc - static_cast<float>(ix);
-      float s[2] = {0.0f, 0.0f};
-      for (int e = lane; e < ww; e += 32) {
-        const int i = e / win;
-        const float rd = T[e] - blend(buf, s1, i, e - i * win, fy, fx);
-        s[0] += rd * Ix[e];
-        s[1] += rd * Iy[e];
-      }
-      warp_sum<2>(s);
-      const float dx = inv00 * s[0] + inv01 * s[1];
-      const float dy = inv01 * s[0] + inv11 * s[1];
-      vx += dx;
-      vy += dy;
-      running = dx * dx + dy * dy > eps2;
-      ++it;
+    const float fy = br - static_cast<float>(iy);
+    const float fx = bc - static_cast<float>(ix);
+    float s[2] = {0.0f, 0.0f};
+    for (int e = lane; e < ww; e += 32) {
+      const int i = e / win;
+      const float rd = T[e] - blend(buf, s1, i, e - i * win, fy, fx);
+      s[0] += rd * Ix[e];
+      s[1] += rd * Iy[e];
     }
+    warp_sum<2>(s);
+    const float dx = inv00 * s[0] + inv01 * s[1];
+    const float dy = inv01 * s[0] + inv11 * s[1];
+    vx += dx;
+    vy += dy;
+    running = dx * dx + dy * dy > eps2;
+    ++it;
   }
   if (lane == 0) {
     flow[2 * k] = vx;
@@ -321,15 +325,256 @@ int launch(const float* prev, const float* next, int hp, int wp, const float* pt
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- K5: the cell kernel with staged regions ------------------------------ //
+
+constexpr int kCellPointsPerCta = 2;
+constexpr int kCellThreads = 32 * kCellPointsPerCta;
+constexpr int kMargin = 7;  // px of `next` staged around the window at the guess
+
+// Floats of one point's slice: the win^2 gradients (Ix, Iy) as float2, the
+// (win+3)^2 window buffer, the region of `next` and the (win+2)^2 template
+// field, rounded up to keep every slice's float2s 8-byte aligned.
+__host__ __device__ constexpr int cell_floats(int win) {
+  return (2 * win * win + (win + 3) * (win + 3) +
+          (win + 1 + 2 * kMargin) * (win + 1 + 2 * kMargin) + (win + 2) * (win + 2) + 1) &
+         ~1;
+}
+
+__device__ __forceinline__ void copy_async4(float* smem_dst, const float* src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src));
+}
+
+// This lane's copies of img[r0:r0+rows, c0:c0+cols] into dst (row-major,
+// `cols` wide); the caller commits and waits.
+__device__ __forceinline__ void stage(const float* __restrict__ img, int wp, int r0, int c0,
+                                      int rows, int cols, float* dst, int lane) {
+  svo::Walk at(lane, 32, rows, cols);
+  for (int e = lane; e < rows * cols; e += 32, at.advance())
+    copy_async4(dst + e, img + static_cast<size_t>(r0 + at.i) * wp + (c0 + at.j));
+}
+
+// This lane's share of the (side)^2 window at (r0, c0) of img, plain loads,
+// kReadBatch of them issued before any is stored: one device-memory latency
+// per batch rather than per element (16 covers a lane's share of a 22^2
+// window at win 21).
+constexpr int kReadBatch = 16;
+__device__ __forceinline__ void read_window(const float* __restrict__ img, int wp, int r0,
+                                            int c0, int side, float* dst, int lane) {
+  const int total = side * side;
+  svo::Walk at(lane, 32, side, side);
+  for (int e0 = lane; e0 < total; e0 += 32 * kReadBatch) {
+    float v[kReadBatch];
+#pragma unroll
+    for (int u = 0; u < kReadBatch; ++u, at.advance())
+      if (e0 + 32 * u < total)
+        v[u] = __ldg(img + static_cast<size_t>(r0 + at.i) * wp + (c0 + at.j));
+#pragma unroll
+    for (int u = 0; u < kReadBatch; ++u)
+      if (e0 + 32 * u < total) dst[e0 + 32 * u] = v[u];
+  }
+}
+
+// kFinish: K5's tail (flow = guess + delta, ok as bool with the radius
+// test); else K8 `full`'s raw tail (flow = delta, ok = the gate as 0/1).
+template <bool kFinish>
+__global__ void __launch_bounds__(kCellThreads)
+lk_block_cell_kernel(const float* __restrict__ prev, const float* __restrict__ next,
+                     int hp, int wp, const float* __restrict__ pts,
+                     const float* __restrict__ guess, const uint8_t* __restrict__ active,
+                     int n, int win, int iters, float eps2, float min_eig, int pad,
+                     float radius, float* __restrict__ flow,
+                     std::conditional_t<kFinish, bool, float>* __restrict__ ok_out,
+                     int32_t* __restrict__ stats) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int k = blockIdx.x * kCellPointsPerCta + warp;
+  if (k >= n) return;  // the whole warp: nothing waits on it
+  const float gy0 = guess[2 * k + 1];
+  const float gx0 = guess[2 * k];
+  float vy = 0.0f, vx = 0.0f;
+  bool ok = false;
+  int it = 0, reloads = 0;
+  if (active == nullptr || active[k] != 0) {
+    const int r = (win - 1) / 2;
+    const float rf = static_cast<float>(r);
+    const int s3 = win + 3, s2 = win + 2, s1 = win + 1, ww = win * win;
+    const int side = s1 + 2 * kMargin;
+    const int rh = min(side, hp), rw = min(side, wp);
+    float* slice = smem + static_cast<size_t>(warp) * cell_floats(win);
+    float2* grad = reinterpret_cast<float2*>(slice);  // win^2 (Ix, Iy)
+    float* buf = slice + 2 * ww;          // (win+3)^2
+    float* region = buf + s3 * s3;        // rh x rw pixels of `next` around the guess
+    float* field = region + side * side;  // (win+2)^2 blended template field
+
+    // ---- staging: the template window and the region, one round -------- //
+    const float py = pts[2 * k + 1] + static_cast<float>(pad);
+    const float px = pts[2 * k] + static_cast<float>(pad);
+    const float tbr = py - rf - 1.0f;
+    const float tbc = px - rf - 1.0f;
+    const int tr0 = floor_clip(tbr, hp - win - 3);
+    const int tc0 = floor_clip(tbc, wp - win - 3);
+    const float tfy = tbr - static_cast<float>(tr0);
+    const float tfx = tbc - static_cast<float>(tc0);
+    const int ry0 = min(max(floor_clip(py + gy0 - rf, hp - win - 1) - kMargin, 0), hp - rh);
+    const int rx0 = min(max(floor_clip(px + gx0 - rf, wp - win - 1) - kMargin, 0), wp - rw);
+    stage(prev, wp, tr0, tc0, s3, s3, buf, lane);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    stage(next, wp, ry0, rx0, rh, rw, region, lane);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // the template window
+    __syncwarp();
+
+    // ---- template phase ----------------------------------------------- //
+    {
+      svo::Walk at(lane, 32, s2, s2);
+      for (int e = lane; e < s2 * s2; e += 32, at.advance())
+        field[e] = blend(buf, s3, at.i, at.j, tfy, tfx);
+    }
+    __syncwarp();
+    const svo::Walk w0(lane, 32, win, win);  // this lane's first (i, j)
+    float g[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // g00 g01 g11 tIx tIy
+    {
+      svo::Walk at = w0;
+      for (int e = lane; e < ww; e += 32, at.advance()) {
+        const float* f = field + (at.i + 1) * s2 + at.j + 1;
+        const float t = f[0];
+        const float gx = (f[1] - f[-1]) * 0.5f;
+        const float gy = (f[s2] - f[-s2]) * 0.5f;
+        grad[e] = make_float2(gx, gy);
+        g[0] += gx * gx;
+        g[1] += gx * gy;
+        g[2] += gy * gy;
+        g[3] += t * gx;
+        g[4] += t * gy;
+      }
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // the region
+    warp_sum<5>(g);
+    __syncwarp();  // the gradients and the region visible to the whole warp
+    const float g00 = g[0], g01 = g[1], g11 = g[2], tIx = g[3], tIy = g[4];
+    const float det = g00 * g11 - g01 * g01;
+    const float trc = g00 + g11;
+    const float mev = (trc - sqrtf(fmaxf(trc * trc - 4.0f * det, 0.0f))) * 0.5f /
+                      static_cast<float>(ww);
+    ok = mev > min_eig;
+    const float safe_det = fabsf(det) < 1e-12f ? 1.0f : det;
+    const float inv00 = g11 / safe_det;
+    const float inv01 = -g01 / safe_det;
+    const float inv11 = g00 / safe_det;
+
+    // ---- iterations --------------------------------------------------- //
+    bool running = ok;
+    while (running && it < iters) {  // uniform: warp totals only
+      const int iy = floor_clip(py + gy0 + vy - rf, hp - win - 1);
+      const int ix = floor_clip(px + gx0 + vx - rf, wp - win - 1);
+      // The window: in place in the region, or read into buf.
+      const float* w = buf;
+      int ws = s1;
+      if (iy >= ry0 && iy + s1 <= ry0 + rh && ix >= rx0 && ix + s1 <= rx0 + rw) {
+        w = region + (iy - ry0) * rw + (ix - rx0);
+        ws = rw;
+      } else {
+        __syncwarp();  // the last reads of buf are done
+        read_window(next, wp, iy, ix, s1, buf, lane);
+        __syncwarp();
+      }
+      ++reloads;
+      float s[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      {
+        svo::Walk at = w0;
+#pragma unroll 4
+        for (int e = lane; e < ww; e += 32, at.advance()) {
+          const float* q = w + at.i * ws + at.j;
+          const float a = q[0], b = q[1], c = q[ws], d = q[ws + 1];
+          const float2 gr = grad[e];
+          const float gx = gr.x, gy = gr.y;
+          s[0] += a * gx;
+          s[1] += b * gx;
+          s[2] += c * gx;
+          s[3] += d * gx;
+          s[4] += a * gy;
+          s[5] += b * gy;
+          s[6] += c * gy;
+          s[7] += d * gy;
+        }
+      }
+      warp_sum<8>(s);
+      const float iyf = static_cast<float>(iy), ixf = static_cast<float>(ix);
+      bool stay = true;
+      while (running && it < iters && stay) {
+        const float fy = (py + gy0 + vy - rf) - iyf;
+        const float fx = (px + gx0 + vx - rf) - ixf;
+        const float wy0 = 1.0f - fy, wx0 = 1.0f - fx;
+        const float wIx = wy0 * wx0 * s[0] + wy0 * fx * s[1] + fy * wx0 * s[2] +
+                          fy * fx * s[3];
+        const float wIy = wy0 * wx0 * s[4] + wy0 * fx * s[5] + fy * wx0 * s[6] +
+                          fy * fx * s[7];
+        const float b0 = tIx - wIx, b1 = tIy - wIy;
+        const float dx = inv00 * b0 + inv01 * b1;
+        const float dy = inv01 * b0 + inv11 * b1;
+        vx += dx;
+        vy += dy;
+        running = dx * dx + dy * dy > eps2;
+        stay = floor_clip(py + gy0 + vy - rf, hp - win - 1) == iy &&
+               floor_clip(px + gx0 + vx - rf, wp - win - 1) == ix;
+        ++it;
+      }
+    }
+  }
+  if (lane == 0) {
+    if constexpr (kFinish) {
+      flow[2 * k] = gx0 + vx;
+      flow[2 * k + 1] = gy0 + vy;
+      ok_out[k] = ok && fabsf(vx) <= radius && fabsf(vy) <= radius;
+    } else {
+      flow[2 * k] = vx;
+      flow[2 * k + 1] = vy;
+      ok_out[k] = ok ? 1.0f : 0.0f;
+    }
+    if (stats != nullptr) {
+      stats[2 * k] = it;
+      stats[2 * k + 1] = reloads;
+    }
+  }
+}
+
+template <bool kFinish>
+int launch_cell(const float* prev, const float* next, int hp, int wp, const float* pts,
+                const float* guess, const uint8_t* active, int n, int win, int iters,
+                float eps2, float min_eig, int pad, float radius, float* flow,
+                std::conditional_t<kFinish, bool, float>* ok, int32_t* stats, int device,
+                void* stream) {
+  if (n == 0) return 0;
+  if (win < 1 || hp < win + 3 || wp < win + 3) return static_cast<int>(cudaErrorInvalidValue);
+  svo::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  const size_t smem = static_cast<size_t>(kCellPointsPerCta) * cell_floats(win) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lk_block_cell_kernel<kFinish>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (n + kCellPointsPerCta - 1) / kCellPointsPerCta;
+  lk_block_cell_kernel<kFinish><<<blocks, kCellThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      prev, next, hp, wp, pts, guess, active, n, win, iters, eps2, min_eig, pad, radius, flow,
+      ok, stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int svo_lk_level_block(const float* prev, const float* next, int hp, int wp,
                                   const float* pts, const float* guess,
-                                  const float* active, int n, int win, int iters,
-                                  float eps2, float min_eig, int pad, float* flow,
-                                  float* ok, int32_t* stats, int device, void* stream) {
-  return launch<kCell>(prev, next, hp, wp, pts, guess, active, n, win, iters, eps2,
-                       min_eig, pad, 0, flow, ok, stats, nullptr, device, stream);
+                                  const uint8_t* active, int n, int win, int iters,
+                                  float eps2, float min_eig, int pad, float radius,
+                                  float* flow, bool* ok, int32_t* stats, int device,
+                                  void* stream) {
+  return launch_cell<true>(prev, next, hp, wp, pts, guess, active, n, win, iters, eps2,
+                           min_eig, pad, radius, flow, ok, stats, device, stream);
 }
 
 extern "C" int svo_lk_level_v2(const float* prev, const float* next, int hp, int wp,
@@ -341,7 +586,8 @@ extern "C" int svo_lk_level_v2(const float* prev, const float* next, int hp, int
                        min_eig, pad, 0, flow, ok, stats, nullptr, device, stream);
 }
 
-// mode: 0 `full` (K5 on these inputs), 1 `tmpl`, 2 `reload` (rounds >= 1).
+// mode: 0 `full` (K5's kernel with the raw tail, every point tracked:
+// `active` is not read), 1 `tmpl`, 2 `reload` (rounds >= 1).
 extern "C" int svo_lk_block_split(const float* prev, const float* next, int hp, int wp,
                                   const float* pts, const float* guess,
                                   const float* active, int n, int win, int iters,
@@ -350,8 +596,8 @@ extern "C" int svo_lk_block_split(const float* prev, const float* next, int hp, 
                                   float* dots, int device, void* stream) {
   switch (mode) {
     case 0:
-      return launch<kCell>(prev, next, hp, wp, pts, guess, active, n, win, iters, eps2,
-                           min_eig, pad, 0, flow, ok, stats, nullptr, device, stream);
+      return launch_cell<false>(prev, next, hp, wp, pts, guess, nullptr, n, win, iters,
+                                eps2, min_eig, pad, 0.0f, flow, ok, stats, device, stream);
     case 1:
       return launch<kTmpl>(prev, next, hp, wp, pts, guess, active, n, win, iters, eps2,
                            min_eig, pad, 0, flow, ok, stats, nullptr, device, stream);

@@ -11,17 +11,22 @@
   (``scripts/probe_lk_breakdown.py:42-104``, called by ``run_variant`` :106):
   K5 cut into ``tmpl`` (the template phase only), ``reload`` (the template,
   then ``rounds`` forced window reloads with their 8 dots, no iterations) and
-  ``full`` (K5 itself), to time where an LK level call's time goes.
+  ``full`` (K5's own kernel, as the TPU probe builds it with K5's factory),
+  to time where an LK level call's time goes.
 
-CUDA kernel ``csrc/lk_block.cu`` (one warp per point; entries
-``svo_lk_level_block`` and ``svo_lk_block_split``). The wrappers route by
-device as ``lk_v1.level_track_v1`` does (a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel, anything else raises) and count
-their launches in ``level_track_block.launches`` and
-``level_track_block_split.launches`` (none at N = 0). They launch through
-``lk_v1.launch``'s lean path with their own C contract (the raw delta and
-gate), finished here. The JAX wrapper's N % 8 pad and the Mosaic shapes are
-not needed: any N works.
+CUDA kernels in ``csrc/lk_block.cu``, one warp per point. K5
+(``svo_lk_level_block``) stages the template window and a region of the
+next image once per point, as K3 does, and finishes the level itself with
+K3's contract (``lk_v1.launch``: a bool ``active`` or None, flow = guess +
+delta, ok with the ``search_radius`` test, ``stats`` only when asked), so a
+call is one kernel. K8 (``svo_lk_block_split``) runs ``full`` on K5's kernel
+with the raw delta and gate, and ``tmpl``/``reload`` on the template K6
+shares. The wrappers route by device as ``lk_v1.level_track_v1`` does (a
+CPU tensor takes the plain version, a CUDA tensor launches the kernel,
+anything else raises) and count their launches in
+``level_track_block.launches`` and ``level_track_block_split.launches``
+(none at N = 0). The JAX wrapper's N % 8 pad and the Mosaic shapes are not
+needed: any N works.
 """
 from __future__ import annotations
 
@@ -29,8 +34,10 @@ import torch
 
 from . import lk_cell, lk_dense, lk_v1, patch
 
-# Points per CTA of csrc/lk_block.cu (one warp each).
-POINTS_PER_CTA = 4
+# Points per CTA of csrc/lk_block.cu (one warp each): the template of K6 and
+# K8 tmpl/reload, and K5's kernel; the margin (px) of the region of the next
+# image K5 stages around the window at the guess (K3's).
+POINTS_PER_CTA, CELL_POINTS_PER_CTA, STAGE_MARGIN = 4, 2, 7
 # K8's variants and their C mode numbers.
 SPLIT_MODES = {"full": 0, "tmpl": 1, "reload": 2}
 # The JAX probe's operating point for ``full`` (probe_lk_breakdown.py:36-38):
@@ -39,9 +46,19 @@ SPLIT_ITERS, SPLIT_EPS = 30, 0.01
 
 
 def smem_bytes(win: int) -> int:
-    """Shared memory of one CTA of csrc/lk_block.cu: per point the (win+3)^2
-    window buffer, the (win+2)^2 field and T/Ix/Iy."""
+    """Shared memory of one CTA of K6's and K8 tmpl/reload's template in
+    csrc/lk_block.cu: per point the (win+3)^2 window buffer, the (win+2)^2
+    field and T/Ix/Iy."""
     return 4 * POINTS_PER_CTA * ((win + 3) ** 2 + (win + 2) ** 2 + 3 * win * win)
+
+
+def cell_smem_bytes(win: int) -> int:
+    """Shared memory of one CTA of K5's kernel (and K8 ``full``): per point
+    the gradients (Ix, Iy), the (win+3)^2 window buffer, the staged region of
+    the next image and the (win+2)^2 field, in floats rounded up to even."""
+    side = win + 1 + 2 * STAGE_MARGIN
+    floats = 2 * win * win + (win + 3) ** 2 + side * side + (win + 2) ** 2
+    return 4 * CELL_POINTS_PER_CTA * (floats + floats % 2)
 
 
 def level_track_block_reference(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
@@ -75,12 +92,12 @@ def level_track_block(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
         return level_track_block_reference(img_prev_pad, img_next_pad, pts, guess, win,
                                            iters, eps, min_eig, search_radius, pad,
                                            active, stats)
-    flow_d, ok = lk_v1.launch("svo_lk_level_block", img_prev_pad, img_next_pad, pts,
-                              guess, win, iters, eps, min_eig, pad, active, stats,
-                              smem=smem_bytes(win))
+    out = lk_v1.launch("svo_lk_level_block", img_prev_pad, img_next_pad, pts, guess, win,
+                       iters, eps, min_eig, pad, active, stats, search_radius,
+                       smem=cell_smem_bytes(win))
     if len(pts):
         level_track_block.launches += 1
-    return lk_v1.finish(guess, flow_d, ok > 0, search_radius)
+    return out
 
 
 level_track_block.launches = 0
@@ -154,7 +171,7 @@ def level_track_block_split(img_prev_pad: torch.Tensor, img_next_pad: torch.Tens
                        device=pts.device)
     flow, ok = lk_v1.launch("svo_lk_block_split", img_prev_pad, img_next_pad, pts,
                             guess, win, SPLIT_ITERS, SPLIT_EPS, min_eig, pad, None, None,
-                            smem=smem_bytes(win),
+                            smem=cell_smem_bytes(win) if mode == "full" else smem_bytes(win),
                             extra=(SPLIT_MODES[mode], n_rounds, dots.data_ptr()))
     if len(pts):
         level_track_block_split.launches += 1

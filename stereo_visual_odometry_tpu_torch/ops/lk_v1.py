@@ -36,10 +36,10 @@ _SMEM_LIMIT = 227 * 1024
 # csrc/lk_level.cu's threads per CTA and the margin (px) of the region of the
 # next image it stages around the window at the guess.
 THREADS, STAGE_MARGIN = 64, 7
-# The C entries that finish the level in the kernel (K3, K4). The others that
-# ``launch`` serves (K5, K6, K8) return the raw delta and a float32 ok, take
+# The C entries that finish the level in the kernel (K3, K4, K5). The others
+# that ``launch`` serves (K6, K8) return the raw delta and a float32 ok, take
 # ``active`` as float32 and always write the statistics.
-_FINISHED = ("svo_lk_level_cell", "svo_lk_level_v1")
+_FINISHED = ("svo_lk_level_cell", "svo_lk_level_v1", "svo_lk_level_block")
 
 
 def _smem_bytes(win: int) -> int:
@@ -58,9 +58,16 @@ def staged_share(pts: torch.Tensor, guess: torch.Tensor, stats: dict, hp: int, w
     level), given a plain version's ``stats`` on the same inputs: its
     ``corners`` and the ``points`` they belong to. 1.0 when nothing was
     reloaded."""
-    corners, owners = stats["corners"], stats["points"]
-    if len(corners) == 0:
+    if len(stats["corners"]) == 0:
         return 1.0
+    return float(staged(pts, guess, stats, hp, wp, win, pad, margin).float().mean())
+
+
+def staged(pts: torch.Tensor, guess: torch.Tensor, stats: dict, hp: int, wp: int,
+           win: int = 21, pad: int = 0, margin: int = STAGE_MARGIN) -> torch.Tensor:
+    """Per reload in ``stats`` (a plain version's ``corners`` and
+    ``points``), whether its window lies in the staged region."""
+    corners, owners = stats["corners"], stats["points"]
     r = (win - 1) // 2
     side = win + 1 + 2 * margin
     rh, rw = min(side, hp), min(side, wp)
@@ -69,8 +76,7 @@ def staged_share(pts: torch.Tensor, guess: torch.Tensor, stats: dict, hp: int, w
     rx = torch.clamp(torch.floor(p[:, 0] + g[:, 0] - r).long(), 0, wp - win - 1) - margin
     ry, rx = torch.clamp(ry, 0, hp - rh), torch.clamp(rx, 0, wp - rw)
     iy, ix = corners[:, 0].long(), corners[:, 1].long()
-    inside = ((iy >= ry) & (iy + win + 1 <= ry + rh) & (ix >= rx) & (ix + win + 1 <= rx + rw))
-    return float(inside.float().mean())
+    return (iy >= ry) & (iy + win + 1 <= ry + rh) & (ix >= rx) & (ix + win + 1 <= rx + rw)
 
 
 def check_inputs(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
@@ -117,9 +123,9 @@ def launch(entry: str, img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
     (``native.entry``, the raw current stream); with N = 0 it launches
     nothing and returns empty outputs.
 
-    ``entry`` is K3 or K4, which finish the level in the kernel and return
-    (flow (N, 2) = guess + delta, ok (N,) bool: the gate and the
-    ``search_radius`` test); or K5, K6, or K8 with its mode, rounds and dots
+    ``entry`` is K3, K4 or K5, which finish the level in the kernel and
+    return (flow (N, 2) = guess + delta, ok (N,) bool: the gate and the
+    ``search_radius`` test); or K6, or K8 with its mode, rounds and dots
     pointer as ``extra`` (the C arguments after ``stats``), which return the
     raw (delta (N, 2), ok (N,) float32: the gate as 0/1, or K8's checksum).
     ``smem`` is the kernel's shared memory per CTA (K3/K4's by default).

@@ -1,5 +1,6 @@
-"""Probe: the LK level kernels K3 (``lk_kernel='cell'``) and K4 (``'v1'``)
-timed on the card, with their iteration statistics.
+"""Probe: the LK level kernels K3 (``lk_kernel='cell'``), K4 (``'v1'``) and
+K5 (``lk_block``, K3's function, a warp per point) timed on the card, with
+their iteration statistics.
 
 At two operating points, ``smoke`` (``chip_smoke.py`` phase 14's: a smooth
 texture moved by (2.3, -1.4) px on LK level 0 padded to (408, 1408), 1024
@@ -17,16 +18,18 @@ it times per kernel:
 * ``host_us``: the wrapper's host time per call (no sync);
 * the iterations and reloads per tracked point (mean, p99, max), from the
   kernel's statistics;
-* on this tree also ``staged_share``: the share of reloads that fall inside
-  the region of the next image the kernel stages, by margin, from the plain
-  versions' reloads.
+* for a kernel that stages a region (K3, K4 and K5 on this tree) also
+  ``staged_share``: the share of reloads that fall inside the region of the
+  next image the kernel stages, by margin, from the plain versions' reloads.
 
 A third point, ``bench``, is the slice itself: every level call that
 ``System.run_chunked`` makes with ``lk_kernel='cell'`` (``'v1'``) on the
-first 8 frames of ``chip_smoke.py``'s bench sequence, recorded as it runs;
-for each, the kernel alone in a CUDA graph (mean and largest over the
-calls), the iterations per tracked point over all the calls and, on this
-tree, the staged share over all their reloads.
+first 8 frames of ``chip_smoke.py``'s bench sequence, recorded as it runs
+(K5, on no ``System`` path, is timed on K3's calls: the same function); for
+each, the kernel alone in a CUDA graph (mean and largest over the calls),
+the iterations per tracked point over all the calls, the staged share
+over all their reloads and the reloads off the region per point (and those
+of each call's most iterating point).
 
     python3 stereo_visual_odometry_tpu_torch/probes/lk_timing.py
     python3 stereo_visual_odometry_tpu_torch/probes/lk_timing.py --root DIR
@@ -37,8 +40,8 @@ A/B on one machine in one run, in turns) through the calls the wrappers,
 ``probes/patch_timing.host_us`` have had since they were written. The bare C
 entry is called with that checkout's contract, told by its argument count:
 18 (the float32 mask, the raw delta and gate, the statistics always
-written) or 19 (the bool mask, the search radius, the finished flow and
-ok, no statistics). Prints one JSON object.
+written: older K3/K4 and K5) or 19 (the bool mask, the search radius, the
+finished flow and ok, no statistics). Prints one JSON object.
 """
 from __future__ import annotations
 
@@ -55,19 +58,23 @@ LEVEL0 = (408, 1408)          # LK level 0 at 384x1280, padded
 SHIFT = (2.3, -1.4)           # the smoke pair's motion, (x, y) px
 GRAPH_CALLS, B2B_CALLS = 30, 200
 MARGINS = (0, 2, 4, 7, 10, 14)  # staged-region margins whose share is reported
-ENTRIES = {"cell": "svo_lk_level_cell", "v1": "svo_lk_level_v1"}
+ENTRIES = {"cell": "svo_lk_level_cell", "v1": "svo_lk_level_v1",
+           "block": "svo_lk_level_block"}
+BENCH_CALLS = {"cell": "cell", "v1": "v1", "block": "cell"}  # whose recorded calls
 # The bench sequence (the JAX bench's, bench.py:31-49): 376x1241 frames,
 # edge-padded to 384x1280; the bench point takes its first BENCH_FRAMES.
 H_RAW, W_RAW, H, W = 376, 1241, 384, 1280
 FX, BASELINE, BENCH_FRAMES = 718.856, 0.537, 8
 
 
-def textured_pair(hp, wp, shift_xy, seed):
-    """A smooth random texture (40 sinusoids, periods 6-40 px) and the same
-    texture moved by ``shift_xy`` px: an exact subpixel shift."""
+def textured_pair(hp, wp, shift_xy, seed, periods=(6.0, 40.0), mean=128.0):
+    """A smooth random texture (40 sinusoids, periods in ``periods`` px, about
+    ``mean``) and the same texture moved by ``shift_xy`` px: an exact
+    subpixel shift."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     k = 40
-    period = 6.0 + 34.0 * torch.rand(k, generator=g, device="cuda")
+    lo, hi = periods
+    period = lo + (hi - lo) * torch.rand(k, generator=g, device="cuda")
     theta = 2 * torch.pi * torch.rand(k, generator=g, device="cuda")
     phase = 2 * torch.pi * torch.rand(k, generator=g, device="cuda")
     amp = 10.0 + 20.0 * torch.rand(k, generator=g, device="cuda")
@@ -77,7 +84,7 @@ def textured_pair(hp, wp, shift_xy, seed):
 
     def img(dx, dy):
         arg = (wx.double() * (x - dx) + wy.double() * (y - dy) + phase.double())
-        return (128.0 + (amp.double() * torch.sin(arg)).sum(-1) / 4).float().contiguous()
+        return (mean + (amp.double() * torch.sin(arg)).sum(-1) / 4).float().contiguous()
 
     return img(0.0, 0.0), img(*shift_xy)
 
@@ -146,8 +153,8 @@ def operating_points(make_probe_inputs) -> dict:
 
 
 def bare_entry(native, stream, name, args, kw, iters=None):
-    """The C entry of K3/K4 on preallocated outputs, as a no-argument call
-    that raises on a launch error: ``args`` (prev, next, pts, guess) and
+    """The C entry of K3, K4 or K5 on preallocated outputs, as a no-argument
+    call that raises on a launch error: ``args`` (prev, next, pts, guess) and
     ``kw`` as a wrapper takes them, ``iters`` in place of ``kw``'s if given.
     The raw stream is read at each call (in a capture, the capturing
     stream)."""
@@ -202,16 +209,38 @@ def shares(share, calls, plain) -> dict:
     return {m: v / max(total, 1) for m, v in inside.items()}
 
 
+def off_region(staged, calls, plain) -> dict:
+    """Reloads off the staged region (the shipped margin) per tracked point
+    over the level ``calls``, by ``plain``'s record: their distribution over
+    points, and per call those of the point that iterates most (the chain
+    that sets a call's time), averaged over the calls."""
+    per_point, slowest = [], []
+    for args, kw in calls:
+        st = {}
+        plain(*args, stats=st, **kw)
+        inside = staged(args[2], args[3], st, *args[0].shape, win=kw["win"], pad=kw["pad"])
+        off = torch.bincount(st["points"][~inside], minlength=len(args[2]))
+        tracked = kw.get("active")
+        per_point.append(off if tracked is None else off[tracked])
+        slowest.append(float(off[torch.argmax(st["iters"])]))
+    return {"per_point": distribution(torch.cat(per_point)),
+            "slowest_point": sum(slowest) / max(len(slowest), 1)}
+
+
 def measure(ops: dict, timing, host_us, stream, bench=None) -> dict:
     """Everything in the module note, per operating point and kernel, for
-    the modules in ``ops`` (``lk_cell``, ``lk_v1``, ``native``, and
-    ``lk_block`` of probes for the inputs). ``bench``: the bench frames and
-    camera (``bench_sequence``'s) for the bench point, which is skipped
-    without them."""
-    fns = {"cell": ops["lk_cell"].level_track_cell, "v1": ops["lk_v1"].level_track_v1}
+    the modules in ``ops`` (``lk_cell``, ``lk_v1``, ``lk_block``,
+    ``native``, and ``make_inputs`` of ``probes/lk_block``). ``bench``: the
+    bench frames and camera (``bench_sequence``'s) for the bench point,
+    which is skipped without them."""
+    fns = {"cell": ops["lk_cell"].level_track_cell, "v1": ops["lk_v1"].level_track_v1,
+           "block": ops["lk_block"].level_track_block}
     plain = {"cell": ops["lk_cell"].level_track_cell_reference,
-             "v1": ops["lk_v1"].level_track_v1_reference}
+             "v1": ops["lk_v1"].level_track_v1_reference,
+             "block": ops["lk_block"].level_track_block_reference}
     share = getattr(ops["lk_v1"], "staged_share", None)
+    stages = {"cell": share is not None, "v1": share is not None,
+              "block": hasattr(ops["lk_block"], "STAGE_MARGIN")}
     out = {}
     for point, inputs in operating_points(ops["make_inputs"]).items():
         prev, nxt, pts, guess, active = inputs
@@ -235,11 +264,15 @@ def measure(ops: dict, timing, host_us, stream, bench=None) -> dict:
                    "host_us": host_us(wrapper),
                    "iters": distribution(st["iters"][tracked]),
                    "reloads": distribution(st["reloads"][tracked])}
-            if share is not None:
+            if stages[name]:
                 res["staged_share"] = shares(share, [(inputs[:4], kw)], plain[name])
             out.setdefault(point, {})[name] = res
+    recorded = {}
     for name in fns if bench is not None else ():
-        calls = bench_level_calls(name, *bench)
+        source = BENCH_CALLS[name]
+        if source not in recorded:
+            recorded[source] = bench_level_calls(source, *bench)
+        calls = recorded[source]
         ms = [timing.graph_ms(bare_entry(ops["native"], stream, ENTRIES[name], args, kw),
                               calls=GRAPH_CALLS) for args, kw in calls]
         its = []
@@ -247,10 +280,13 @@ def measure(ops: dict, timing, host_us, stream, bench=None) -> dict:
             st = {}
             fns[name](*args, stats=st, **kw)
             its.append(st["iters"] if kw.get("active") is None else st["iters"][kw["active"]])
-        res = {"calls": len(calls), "kernel_graph_ms": sum(ms) / len(ms),
+        res = {"calls": len(calls), "recorded_on": source,
+               "kernel_graph_ms": sum(ms) / len(ms),
                "kernel_graph_ms_max": max(ms), "iters": distribution(torch.cat(its))}
-        if share is not None:
+        if stages[name]:
             res["staged_share"] = shares(share, calls, plain[name])
+            if hasattr(ops["lk_v1"], "staged"):
+                res["off_region"] = off_region(ops["lk_v1"].staged, calls, plain[name])
         out.setdefault("bench", {})[name] = res
     torch.cuda.synchronize()
     return out
@@ -265,6 +301,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this probe times the kernels on an NVIDIA GPU")
     sys.path[0] = str(Path(args.root).resolve())  # not this file's directory
+    from stereo_visual_odometry_tpu_torch.ops import lk_block as lk_block_op
     from stereo_visual_odometry_tpu_torch.ops import lk_cell, lk_v1, native, patch
     from stereo_visual_odometry_tpu_torch.probes import lk_block, patch_timing, timing
     try:
@@ -274,7 +311,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
-    ops = {"lk_cell": lk_cell, "lk_v1": lk_v1, "native": native,
+    ops = {"lk_cell": lk_cell, "lk_v1": lk_v1, "lk_block": lk_block_op, "native": native,
            "make_inputs": lk_block.make_inputs}
     il, ir, _, cam = bench_sequence(BENCH_FRAMES)
     res = {"root": args.root, "card": smi,

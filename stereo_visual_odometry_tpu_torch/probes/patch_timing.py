@@ -9,7 +9,9 @@ kernel, library, library, kernel, keeping each one's faster run; and each
 wrapper's host time per call (``time.perf_counter`` over many calls, no
 sync). The shapes are the main paths': K1 S = 24, N = 1024 on LK level 0
 padded, (408, 1408); K2 P = 39, N = 445 on ORB level 0, (384, 1280); K7
-(128, 256), axis 0, amount 9 (the roll probe's largest block).
+(128, 256), axis 0, amount 9 (the roll probe's largest block), and in a
+graph also K7 on one row of 256, the least a K7 node takes
+(``k7.one_row_graph_ms``), timed in turns with the (128, 256) call.
 
     python3 stereo_visual_odometry_tpu_torch/probes/patch_timing.py
     python3 stereo_visual_odometry_tpu_torch/probes/patch_timing.py --root DIR
@@ -19,7 +21,9 @@ an A/B on one machine in one run) through the calls that K1's, K2's and
 K7's wrappers and ``probes/timing.py`` have had since they were written:
 ``extract_windows_int(img, corners, S)``, ``extract_patches(img, xy, P)``,
 ``roll(x, amt, axis)``, ``events_ms`` and ``graph_ms``. Prints one JSON
-object. ``chip_smoke.py`` calls ``measure`` and ``host_split`` itself.
+object; on a tree whose K7 launches through its binding
+(``roll.launcher``) also K7's host split (``k7_host_split``). ``chip_smoke.py``
+calls ``measure``, ``host_split`` and ``k7_host_split`` itself.
 """
 from __future__ import annotations
 
@@ -161,6 +165,11 @@ def measure(patch, roll, timing) -> dict:
     res["k7"] = {"shape": list(K7_SHAPE), "amount": K7_AMOUNT, **_pair(timing, k7, lib7),
                  "library_max_diff": float((lib7() - k7()).abs().max()),
                  "host_us": host_us(k7)}
+    row = x[:1].clone()
+    one_row = lambda: roll.roll(row, a, 0)
+    runs = [timing.graph_ms(f, calls=GRAPH_CALLS) for f in (one_row, k7, k7, one_row)]
+    res["k7"]["one_row_graph_ms"] = min(runs[0], runs[3])
+    res["k7"]["graph_ms_beside_one_row"] = min(runs[1], runs[2])
     torch.cuda.synchronize()
     return res
 
@@ -198,6 +207,23 @@ def host_split(patch, native, current_stream) -> dict:
     return {k: host_us(f) for k, f in pieces.items()}
 
 
+def k7_host_split(roll) -> dict:
+    """K7's call on the host, piece by piece (us per call, each through one
+    Python call, no sync): the wrapper, the binding's ``roll`` alone (checks,
+    ``at::empty_like``, the stream, the launch), ``torch.empty_like`` and
+    ``torch.roll`` from Python, and the wrapper's device test
+    (``x.is_cuda``), at the timed shape."""
+    x = torch.rand(K7_SHAPE, device="cuda")
+    a = torch.tensor([[K7_AMOUNT]], dtype=torch.int32, device="cuda")
+    bound = roll.launcher()
+    pieces = {"wrapper": lambda: roll.roll(x, a, 0),
+              "binding": lambda: bound(x, a, 0),
+              "torch_empty_like": lambda: torch.empty_like(x),
+              "torch_roll": lambda: torch.roll(x, -K7_AMOUNT, 0),
+              "is_cuda": lambda: x.is_cuda}
+    return {k: host_us(f) for k, f in pieces.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
@@ -219,6 +245,8 @@ def main(argv=None) -> int:
         except ImportError:  # a checkout from before the shared module
             current_stream = patch.current_stream
         res["k1_host_split_us"] = host_split(patch, native, current_stream)
+    if hasattr(roll, "launcher"):
+        res["k7_host_split_us"] = k7_host_split(roll)
     print(json.dumps(res))
     return 0
 

@@ -5,6 +5,7 @@ host's time to issue a call and the device's time to run it. ``graph_ms``
 captures ``calls`` calls in one CUDA graph and replays it: the device time
 per call, without the wrappers' host time. ``wall_ms`` is the host clock,
 for the plain versions on the CPU. Each returns milliseconds per call.
+``replays_equal`` checks that a captured call replays what it does eagerly.
 """
 from __future__ import annotations
 
@@ -47,6 +48,24 @@ def graph_ms(fn, calls: int = 30, replays: int = 10, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * calls)
+
+
+def replays_equal(fn, warmup: int = 2) -> bool:
+    """Capture ``fn`` (which returns a list of tensors) in a CUDA graph,
+    replay it, and say whether the replay's outputs equal those of an eager
+    call bit for bit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(captured, fn(), strict=True))
 
 
 def wall_ms(fn, iters: int = 3, warmup: int = 1) -> float:

@@ -13,8 +13,9 @@ Tolerances: K1 exact (a copy). K2 exact (the kernel's __fmul_rn / __fmaf_rn
 are the plain version's products and exactly emulated fmas). K3-K6:
 ok masks >= 99% equal, flows within 1e-3 px for >= 98% of the points both
 keep and within eps for all (block sums in another order can stop a point
-one iteration earlier or later, which moves it by less than eps). K7 exact
-(a copy). K8's checksums within 1e-4 of their largest value (sums of ~441
+one iteration earlier or later, which moves it by less than eps); K5 is
+also held to the K3 kernel. K7 exact (a copy), through its C++ binding,
+which refuses bad inputs with a ValueError. K8's checksums within 1e-4 of their largest value (sums of ~441
 products in another order). The slices:
 accept flags equal and poses within 1e-3 m / 1e-4, with the same RANSAC
 draws fed to both devices — the GPU sums in another order than the CPU
@@ -320,18 +321,22 @@ def test_lk_level_kernel_rejects_mixed_devices(kernel):
 
 @pytest.mark.parametrize("axis", [0, 1])
 def test_k7_roll_kernel_matches_reference(axis):
-    """K7 over the probe's grid and amounts -1, the axis length and + 5:
-    exact (a copy)."""
+    """K7 over the probe's grid and amounts -1, the axis length and + 5, and
+    on both of its kernels' paths: exact (a copy)."""
     need_cuda()
     before = roll.roll.launches
     worst = probe_roll.envelope("cuda", extended=True)
-    assert roll.roll.launches > before
+    assert roll.roll.launches > before and roll._launch is not None  # through the binding
     assert all(err == 0.0 for ax, _, err in worst if ax == axis), worst
-    x = torch.rand(128, 256, device="cuda")
-    for amt in (-300, -1, 0, 9, 255, 256, 1000):
-        a = torch.tensor([[amt]], dtype=torch.int32, device="cuda")
-        torch.testing.assert_close(roll.roll(x, a, axis), roll.roll_reference(x, a, axis),
-                                   rtol=0, atol=0)
+    # The 16-byte path (cols % 4 == 0, aligned) and the one-element path: an
+    # odd width, and a view 4 bytes off 16-byte alignment.
+    flat = torch.rand(129 * 256, device="cuda")
+    for x in (flat[:128 * 256].view(128, 256), torch.rand(37, 255, device="cuda"),
+              torch.rand(3, 6, device="cuda"), flat[1:1 + 128 * 256].view(128, 256)):
+        for amt in (-300, -5, -4, -1, 0, 3, 4, 9, 255, 256, 1000):
+            a = torch.tensor([[amt]], dtype=torch.int32, device="cuda")
+            torch.testing.assert_close(roll.roll(x, a, axis), roll.roll_reference(x, a, axis),
+                                       rtol=0, atol=0)
 
 
 def test_k7_rejects_mixed_devices():
@@ -339,6 +344,93 @@ def test_k7_rejects_mixed_devices():
     with pytest.raises(ValueError):
         roll.roll(torch.zeros(16, 256, device="cuda"), torch.zeros((1, 1), dtype=torch.int32),
                   0)
+
+
+@pytest.mark.parametrize("bad", ["x_float64", "x_3d", "x_1d", "x_empty", "amt_int64",
+                                 "amt_shape", "axis"])
+def test_k7_binding_rejects_bad_inputs(bad):
+    """The binding refuses what the kernel does not take with a ValueError
+    before any launch: no fallback to torch.roll, no launch counted."""
+    need_cuda()
+    x = torch.rand(16, 256, device="cuda")
+    amt, axis = torch.zeros((1, 1), dtype=torch.int32, device="cuda"), 0
+    if bad == "x_float64":
+        x = x.double()
+    elif bad == "x_3d":
+        x = x[None]
+    elif bad == "x_1d":
+        x = x[0]
+    elif bad == "x_empty":
+        x = x[:0]
+    elif bad == "amt_int64":
+        amt = amt.long()
+    elif bad == "amt_shape":
+        amt = amt.reshape(1)
+    else:
+        axis = 2
+    before = roll.roll.launches
+    with pytest.raises(ValueError):
+        roll.roll(x, amt, axis)
+    assert roll.roll.launches == before
+
+
+def test_k7_output_is_new_memory():
+    """K7's output never aliases its input (nor a non-contiguous input's
+    storage), and it leaves the input as it was."""
+    need_cuda()
+    x = torch.rand(128, 256, device="cuda")
+    keep = x.clone()
+    a = torch.tensor([[7]], dtype=torch.int32, device="cuda")
+    for src in (x, x.t()):  # the transpose takes the contiguous copy
+        out = roll.roll(src, a, 1)
+        assert out.is_contiguous() and out.shape == src.shape
+        assert out.untyped_storage().data_ptr() != x.untyped_storage().data_ptr()
+        torch.testing.assert_close(out, torch.roll(src, -7, 1), rtol=0, atol=0)
+    assert torch.equal(x, keep)
+
+
+def test_k7_in_a_cuda_graph_matches_eager():
+    """Captured in a CUDA graph, K7 calls replay exactly what they compute
+    eagerly, also after the input and the amount change in place (the amount
+    is read on the card at each replay)."""
+    need_cuda()
+    x = torch.rand(64, 256, device="cuda")
+    a = torch.tensor([[9]], dtype=torch.int32, device="cuda")
+    calls = lambda: [roll.roll(x, a, 0), roll.roll(x, a, 1)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = roll.roll.launches
+    with torch.cuda.graph(graph):
+        captured = calls()
+    assert roll.roll.launches == before + 2
+    for step in range(2):
+        if step:
+            x.copy_(torch.rand_like(x))
+            a.fill_(-300)
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, axis in zip(captured, (0, 1)):
+            torch.testing.assert_close(got, roll.roll_reference(x, a, axis), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape,kernel", [((128, 256), "roll4_kernel"),
+                                          ((37, 255), "roll_kernel")])
+def test_k7_call_is_one_kernel(shape, kernel):
+    """A K7 call launches one kernel (the 16-byte one where the width allows,
+    else the one-element one) and no other device work (the binding
+    allocates, checks and launches on the host), by the profiler's count."""
+    need_cuda()
+    x = torch.rand(*shape, device="cuda")
+    a = torch.tensor([[9]], dtype=torch.int32, device="cuda")
+    roll.roll(x, a, 0)
+    torch.cuda.synchronize()
+    assert roll._launch is not None  # the binding, not ctypes or torch.roll
+    device_work = _device_work(lambda: roll.roll(x, a, 0))
+    assert len(device_work) == 1 and f"::{kernel}(" in device_work[0], device_work
 
 
 @pytest.mark.parametrize("label", list(lk_breakdown.VARIANTS))
@@ -387,31 +479,26 @@ def _smooth_pair(rng, hp, wp, shift_xy):
     return img(0.0, 0.0), img(*shift_xy)
 
 
-@pytest.mark.parametrize("kernel", ["cell", "v1"])
-def test_k3_k4_windows_outside_the_staged_region(kernel):
-    """Guesses STAGE_MARGIN + 4 px off the motion: the points' windows leave
-    the region of the next image staged around the guess (on average more
-    than one window per point: 2.1 for K3, 3.0 for K4, by the plain version
-    on the CPU; every point converges within 8 iterations, where from 12 px
-    some run all 30) and are read from device memory; the results
-    match the plain version under phase 5's criteria: ok masks >= 99% equal,
-    flows within 1e-3 px for >= 98% of the kept points and within eps for
-    all, the mean iterations and reloads within 0.01."""
-    need_cuda()
+def _off_region_inputs():
+    """Guesses STAGE_MARGIN + 4 px off the motion on a smooth pair: the
+    points' windows leave the region of the next image staged around the
+    guess (on average more than one window per point: 2.1 for K3, 3.0 for
+    K4, by the plain version on the CPU; every point converges within 8
+    iterations, where from 12 px some run all 30)."""
     rng = np.random.default_rng(9)
     hp, wp, pad, n = 216, 768, 12, 1024
     prev, nxt = _smooth_pair(rng, hp, wp, (2.0, -1.0))
     pts = (rng.random((n, 2)) * [wp - 2 * pad - 1, hp - 2 * pad - 1]).astype(np.float32)
     guess = (np.float32([2.0 + lk_v1.STAGE_MARGIN + 4, -1.0])
              + rng.uniform(-0.5, 0.5, (n, 2))).astype(np.float32)
-    args = [torch.from_numpy(a).cuda() for a in (prev, nxt, pts, guess)]
-    fn, ref, _ = LK_LEVEL[kernel]
-    kw = dict(eps=0.01, search_radius=20, pad=pad)
-    st_k, st_p = {}, {}
-    fk, okk = fn(*args, stats=st_k, **kw)
-    fp, okp = ref(*args, stats=st_p, **kw)
-    share = lk_v1.staged_share(args[2], args[3], st_p, hp, wp, pad=pad)
-    assert (1.0 - share) * len(st_p["corners"]) > n
+    return [torch.from_numpy(a).cuda() for a in (prev, nxt, pts, guess)], pad
+
+
+def _assert_level_calls_agree(got, want, n):
+    """Phase 5's criteria: ok masks >= 99% equal, flows within 1e-3 px for
+    >= 98% of the kept points and within eps for all, the mean iterations and
+    reloads within 0.01, the motion recovered."""
+    (fk, okk, st_k), (fp, okp, st_p) = got, want
     assert float((okk == okp).float().mean()) >= 0.99
     both = okk & okp
     assert int(both.sum()) > 0.9 * n
@@ -421,6 +508,70 @@ def test_k3_k4_windows_outside_the_staged_region(kernel):
         assert abs(float(st_k[key].float().mean()) - float(st_p[key].float().mean())) <= 0.01
     assert float((fk[both] - torch.tensor([2.0, -1.0], device="cuda")).norm(dim=-1)
                  .median()) < 0.05
+
+
+def _with_stats(fn, args, **kw):
+    stats = {}
+    return (*fn(*args, stats=stats, **kw), stats)
+
+
+@pytest.mark.parametrize("kernel", ["cell", "v1"])
+def test_k3_k4_windows_outside_the_staged_region(kernel):
+    """Windows off the staged region are read from device memory; the
+    results match the plain version under phase 5's criteria."""
+    need_cuda()
+    args, pad = _off_region_inputs()
+    fn, ref, _ = LK_LEVEL[kernel]
+    kw = dict(eps=0.01, search_radius=20, pad=pad)
+    want = _with_stats(ref, args, **kw)
+    share = lk_v1.staged_share(args[2], args[3], want[2], *args[0].shape, pad=pad)
+    assert (1.0 - share) * len(want[2]["corners"]) > len(args[2])
+    _assert_level_calls_agree(_with_stats(fn, args, **kw), want, len(args[2]))
+
+
+def test_k5_windows_outside_the_staged_region():
+    """K5 stages K3's region; its windows off the region come from device
+    memory. The results match the plain version and the K3 kernel under
+    phase 5's criteria."""
+    need_cuda()
+    args, pad = _off_region_inputs()
+    kw = dict(eps=0.01, search_radius=20, pad=pad)
+    want = _with_stats(lk_block.level_track_block_reference, args, **kw)
+    share = lk_v1.staged_share(args[2], args[3], want[2], *args[0].shape, pad=pad,
+                               margin=lk_block.STAGE_MARGIN)
+    assert (1.0 - share) * len(want[2]["corners"]) > len(args[2])
+    got = _with_stats(lk_block.level_track_block, args, **kw)
+    _assert_level_calls_agree(got, want, len(args[2]))
+    _assert_level_calls_agree(got, _with_stats(lk_cell.level_track_cell, args, **kw),
+                              len(args[2]))
+
+
+@pytest.mark.parametrize("radius", [2.5, 6])
+def test_k5_kernel_matches_the_k3_kernel(radius):
+    """K5 and K3 compute one function: on K3's card-test inputs (a quarter of
+    the points inactive, guesses within 1.5 px of a (2, -1) px motion, so
+    that radius 2.5 drops about a third of them) the same ok masks (>= 99%),
+    flows within 1e-3 px for >= 98% and within eps for all, the same mean
+    iterations and reloads; inactive points keep their guess, and a call
+    without ``stats`` gives the same outputs bit for bit."""
+    need_cuda()
+    (prev, nxt, pts, guess, active), pad = _k3_k4_inputs()
+    args = (prev, nxt, pts, guess)
+    kw = dict(pad=pad, active=active, search_radius=radius)
+    got = _with_stats(lk_block.level_track_block, args, **kw)
+    want = _with_stats(lk_cell.level_track_cell, args, **kw)
+    assert float((got[1] == want[1]).float().mean()) >= 0.99
+    both = got[1] & want[1]
+    assert int(both.sum()) > 0.5 * int(active.sum())
+    d = (got[0] - want[0]).abs().amax(-1)[both]
+    assert float(d.max()) <= 0.01 and float((d > 1e-3).float().mean()) <= 0.02
+    for key in ("iters", "reloads"):
+        assert abs(float(got[2][key][active].float().mean())
+                   - float(want[2][key][active].float().mean())) <= 0.01
+    assert torch.equal(got[0][~active], guess[~active]) and not bool(got[1][~active].any())
+    assert int(got[2]["iters"][~active].abs().sum()) == 0
+    flow, ok = lk_block.level_track_block(*args, **kw)
+    assert torch.equal(flow, got[0]) and torch.equal(ok, got[1])
 
 
 def _k3_k4_inputs(seed=6):
@@ -435,18 +586,21 @@ def _k3_k4_inputs(seed=6):
 
 
 def test_k3_k4_in_a_cuda_graph_match_eager():
-    """Captured in a CUDA graph, K3 and K4 (with and without a mask, with
-    statistics) give the eager outputs bit for bit, also after the inputs
-    change in place between replays."""
+    """Captured in a CUDA graph, K3, K4 and K5 (with and without a mask,
+    with statistics) give the eager outputs bit for bit, also after the
+    inputs change in place between replays."""
     need_cuda()
     (prev, nxt, pts, guess, active), pad = _k3_k4_inputs()
-    stats = [{}, {}]
+    stats = [{}, {}, {}]
 
     def calls():
         return (*lk_cell.level_track_cell(prev, nxt, pts, guess, pad=pad, active=active,
                                           stats=stats[0]),
                 *lk_v1.level_track_v1(prev, nxt, pts, guess, pad=pad, stats=stats[1]),
-                *lk_cell.level_track_cell(prev, nxt, pts, guess, pad=pad, search_radius=20))
+                *lk_cell.level_track_cell(prev, nxt, pts, guess, pad=pad, search_radius=20),
+                *lk_block.level_track_block(prev, nxt, pts, guess, pad=pad, active=active,
+                                            stats=stats[2]),
+                *lk_block.level_track_block(prev, nxt, pts, guess, pad=pad))
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -470,29 +624,48 @@ def test_k3_k4_in_a_cuda_graph_match_eager():
             assert all(torch.equal(got[k], want[k]) for k in ("iters", "reloads"))
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("kernel", ["cell", "v1"])
-def test_k3_k4_wrapper_call_is_one_kernel(kernel, masked):
-    """One level call is one CUDA kernel and no other device work (no mask
-    conversion, no tail), by the profiler's count. A profiler session that
-    recorded no device work at all (CUPTI now and then delivers no record
-    of a short session; the kernel ran) is taken again, up to three times."""
-    need_cuda()
-    (prev, nxt, pts, guess, active), pad = _k3_k4_inputs()
-    fn = LK_LEVEL[kernel][0]
-    kw = dict(pad=pad, active=active if masked else None)
-    fn(prev, nxt, pts, guess, **kw)  # the build and the first launch
-    torch.cuda.synchronize()
+def _device_work(call) -> list:
+    """The names of the device work one ``call`` does, by the profiler. A
+    session that recorded no device work at all (CUPTI now and then delivers
+    no record of a short session; the kernel ran) is taken again, up to three
+    times."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn(prev, nxt, pts, guess, **kw)
+            call()
             torch.cuda.synchronize()
         device_work = [e.name for e in prof.events()
                        if e.device_type == torch.autograd.DeviceType.CUDA]
         if device_work:
             break
-    assert len(device_work) == 1 and "lk_level_kernel" in device_work[0], device_work
+    return device_work
+
+
+def _level_call_is_one_kernel(kernel, masked, name):
+    (prev, nxt, pts, guess, active), pad = _k3_k4_inputs()
+    fn = LK_LEVEL[kernel][0]
+    kw = dict(pad=pad, active=active if masked else None)
+    fn(prev, nxt, pts, guess, **kw)  # the build and the first launch
+    torch.cuda.synchronize()
+    device_work = _device_work(lambda: fn(prev, nxt, pts, guess, **kw))
+    assert len(device_work) == 1 and name in device_work[0], device_work
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("kernel", ["cell", "v1"])
+def test_k3_k4_wrapper_call_is_one_kernel(kernel, masked):
+    """One level call is one CUDA kernel and no other device work (no mask
+    conversion, no tail), by the profiler's count."""
+    need_cuda()
+    _level_call_is_one_kernel(kernel, masked, "lk_level_kernel")
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_k5_wrapper_call_is_one_kernel(masked):
+    """A K5 level call is one CUDA kernel, as K3's: its tail, the mask and
+    the statistics are the kernel's, no other node."""
+    need_cuda()
+    _level_call_is_one_kernel("block", masked, "lk_block_cell_kernel")
 
 
 COUNTERS = (patch.extract_windows_int, patch.extract_patches,

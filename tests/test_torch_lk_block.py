@@ -88,6 +88,40 @@ def test_block_plain_matches_jax_kernel(level, with_active, with_guess):
         assert (stats["iters"].numpy()[~active] == 0).all()
 
 
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("radius", [1, 6])
+def test_block_contract_matches_jax_kernel(level, radius, with_stats):
+    """K5's wrapper contract on the CPU route, K3's: a bool ``active``, the
+    ``search_radius`` test on the found delta, ``stats`` only when asked;
+    held to ``level_track_pallas_block`` in interpret mode with the same
+    mask and radius. At radius 1 the gate drops points that radius 6
+    keeps."""
+    prev, nxt, pts, guess, active = level
+    kw = dict(win=21, iters=30, eps=0.01, search_radius=radius, pad=PAD)
+    jax_block = load_script("lk_pallas_block")
+    fj, okj = jax_block.level_track_pallas_block(
+        jnp.asarray(prev), jnp.asarray(nxt), jnp.asarray(pts), jnp.asarray(guess),
+        interpret=True, active=jnp.asarray(active), **kw)
+    stats = {} if with_stats else None
+    ft, okt = lk_block.level_track_block(
+        torch.from_numpy(prev), torch.from_numpy(nxt), torch.from_numpy(pts),
+        torch.from_numpy(guess), active=torch.from_numpy(active), stats=stats, **kw)
+    assert okt.dtype == torch.bool and ft.dtype == torch.float32
+    okj = np.asarray(okj)
+    np.testing.assert_array_equal(okt.numpy(), okj)
+    kept = okt.numpy()
+    np.testing.assert_allclose(ft.numpy()[kept], np.asarray(fj)[kept], atol=FLOW_ATOL, rtol=0)
+    np.testing.assert_array_equal(ft.numpy()[~active], guess[~active])
+    delta = np.abs(ft.numpy() - guess).max(-1)
+    assert not kept[delta > radius].any()
+    if radius == 1:
+        assert (delta[active] > 1).any()  # the gate has points to drop
+    if with_stats:
+        assert set(stats) >= {"iters", "reloads"}
+        assert stats["iters"].shape == (N,) and stats["iters"].dtype == torch.int32
+        assert (stats["iters"].numpy()[~active] == 0).all()
+
+
 @pytest.mark.parametrize("with_guess", [False, True])
 def test_v2_plain_matches_jax_kernel(level, with_guess):
     """K6's plain version against ``level_track_pallas_v2`` in interpret
