@@ -49,15 +49,19 @@ Phases (each prints one line; any failure exits non-zero):
      frame's motion out of the chain; aligning from frame 1 removes that
      offset. The bounds sit above the JAX package's numbers on the same
      generator at half this resolution (``tests/torch_lk_branch_reference.py``);
- 10. K5 and K6 (``csrc/lk_block.cu``, a warp per point; K5 with staged
-     regions and K3's fused tail) against their plain versions (K3's and
-     K4's) on phase 5's inputs, K6 with every point tracked (it takes no
-     mask): phase 5's criteria, and the mean iterations and reloads per
-     tracked point within 0.01 of the plain version's; the same against the
-     K3 and K4 kernels; K5 again with guesses 11 px off the motion on LK
-     level 1, so that its windows leave the staged region (more than one
-     off-region reload per tracked point), against its plain version and
-     K3; N = 0 as in phase 5;
+ 10. K5 and K6 (``csrc/lk_block.cu``: one kernel, a warp per point,
+     staged regions, the wrappers' tail fused in; K5 with K3's body, K6
+     with K4's) against their plain versions (K3's and K4's) on phase 5's
+     inputs, K6 with every point tracked (its wrapper takes no mask):
+     phase 5's criteria, and the mean iterations and reloads per tracked
+     point within 0.01 of the plain version's; the same against the K3 and
+     K4 kernels; K6 also with phase 5's mask through its bare C entry (K4's
+     contract) against the K4 kernel with that mask; K5 and K6 again with
+     guesses 11 px off the motion on LK level 1, so that their windows
+     leave the staged region (more than one off-region reload per tracked
+     point), against their plain versions and the K3 and K4 kernels; N = 0
+     as in phase 5; one K6 wrapper call at phase 14's point one device op
+     by the profiler;
  11. K7 (``csrc/roll.cu``, launched through its binding) against its plain
      version (``torch.roll``) over the roll probe's grid, (rows, 256) for
      rows 16..128 on both axes, with the amounts 0, 1, 3, 7, 9 / 100, -1, the
@@ -66,11 +70,12 @@ Phases (each prints one line; any failure exits non-zero):
      output that is not its input,
      a CUDA graph of K7 calls equal to the eager calls, and a float64 or a
      3-D ``x`` refused with a ValueError and no launch counted;
- 12. K8 (``csrc/lk_block.cu``, ``svo_lk_block_split``) at the breakdown
-     probe's operating point ((408, 1408), N = 1024): ``tmpl`` and
-     ``reload`` (1 and 3 rounds) within 1e-4 relative of their plain
-     versions, ``full`` equal to K5's output bit for bit; N = 0 for each
-     variant as in phase 5;
+ 12. K8 (``csrc/lk_block.cu``, ``svo_lk_block_split``: every variant on
+     K5's kernel) at the breakdown probe's operating point ((408, 1408),
+     N = 1024): ``tmpl`` and ``reload`` (1 and 3 rounds) within 1e-4
+     relative of their plain versions, ``full`` equal to K5's output bit
+     for bit, each variant's call one device op by the profiler; N = 0 for
+     each variant as in phase 5;
  13. this slice's paths, the probes of ``stereo_visual_odometry_tpu_torch/
      probes``: ``lk_block`` (K5/K6 against K3/K4 on the probes' pair moved
      by (3, 2) px), ``lk_breakdown`` (K8's four variants) and ``roll`` (the
@@ -84,15 +89,16 @@ Phases (each prints one line; any failure exits non-zero):
      unpadded image for K2; ``torch.roll`` for K7,
      ``probes/patch_timing.py``), with the wrappers' host time per call and,
      on lines of their own, K1's and K7's wrapper split piece by piece, and
-     the graph time of a one-row K7 call (K7's practical floor); K3, K4 and
-     K5 through ``probes/lk_timing.py`` at two operating points, on a line of
+     the graph time of a one-row K7 call (K7's practical floor); K3-K6
+     through ``probes/lk_timing.py`` at two operating points, on a line of
      their own: the kernel alone (the bare C entry) in a graph, its template
      phase (``iters=0``) and one iteration, the wrapper's host time, the
      iterations and reloads per point, and the share of reloads served from
      the staged region by margin; and over every level call of the first 8
-     bench frames (recorded from ``System.run_chunked``; K5 on K3's calls),
-     the kernel alone in a graph, the iterations per tracked point and the
-     staged share;
+     bench frames (recorded from ``System.run_chunked``; K5 and K6 on K3's
+     and K4's calls), the kernel alone in a graph, the iterations per
+     tracked point and the staged share; and K8's split (template, one
+     reload round, the rest of a full call);
  15. eager against graph: each slice of phases 6-9 run by ``System`` with
      ``graph=False`` and then with the graph, in turns in this call: both
      ms/frame, ATE, accept and n_tracked, which must be equal, and whether
@@ -157,12 +163,13 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def lk_level_bound(torch, stats, corners, pts, active, hp, wp, kernel, fused=False):
-    """Least time of one K3/K4 call on these inputs: the distinct pixels of
+def lk_level_bound(torch, stats, corners, pts, active, hp, wp, kernel, io=None):
+    """Least time of one K3-K6 call on these inputs: the distinct pixels of
     the template windows and of the windows the points visited (read once),
     the inputs and outputs, against the flops the taken iterations need.
-    ``fused``: K3/K4's contract (a bool mask; flow and a bool ok, no
-    statistics) rather than K5/K6's (float32 mask and ok, the statistics)."""
+    ``io``: the bytes of the points' inputs and outputs, by default the
+    finished contract's with a mask (pts, guess and a bool mask in; flow
+    and a bool ok out, no statistics)."""
     r = (WIN - 1) // 2
     tp = pts[active] + PAD
     tr = torch.floor(tp[:, 1] - r - 1.0).long().clamp(0, hp - WIN - 3)
@@ -171,8 +178,7 @@ def lk_level_bound(torch, stats, corners, pts, active, hp, wp, kernel, fused=Fal
     pix = (window_pixels(torch, hp, wp, tr, tc, WIN + 3) +
            window_pixels(torch, hp, wp, corners[:, 0].long(), corners[:, 1].long(),
                          WIN + 1))
-    io = (n * (8 + 8 + 1) + n * (8 + 1) if fused  # pts, guess, active; flow, ok
-          else n * (8 + 8 + 4) + n * (8 + 4 + 8))  # ... and the counts
+    io = n * (8 + 8 + 1) + n * (8 + 1) if io is None else io  # pts, guess, active; flow, ok
     ww = WIN * WIN
     flops = n_act * (11 * (WIN + 2) ** 2 + 14 * ww)  # blend, gradients, 5 dots
     iters, reloads = int(stats["iters"].sum()), int(stats["reloads"].sum())
@@ -192,10 +198,10 @@ def split_bound(torch, label, inputs, variants, stats=None, corners=None):
     pts, (hp, wp) = inputs["pts"], inputs["prev"].shape
     n, ww, r = pts.shape[0], WIN * WIN, (WIN - 1) // 2
     mode, rounds = variants[label]
-    if mode == "full":
+    if mode == "full":  # pts in; the delta and a float32 gate out
         return lk_level_bound(torch, stats, corners, pts,
                               torch.ones(n, dtype=torch.bool, device=pts.device),
-                              hp, wp, "cell")
+                              hp, wp, "cell", io=n * 8 + n * (8 + 4))
     tp = pts + PAD
     tr = torch.floor(tp[:, 1] - r - 1.0).long().clamp(0, hp - WIN - 3)
     tc = torch.floor(tp[:, 0] - r - 1.0).long().clamp(0, wp - WIN - 3)
@@ -280,6 +286,25 @@ def window_pixels(torch, hp, wp, rows, cols, size):
     seen = torch.zeros((hp, wp), dtype=torch.bool, device=rows.device)
     seen[r.expand(-1, size, size), c.expand(-1, size, size)] = True
     return int(seen.sum())
+
+
+def one_node(torch, profiling, tag, call) -> str:
+    """Check that one ``call`` (after one call unprofiled) is one device op
+    by the profiler, a kernel of csrc/lk_block.cu; returns its name. A
+    session that recorded no device op (CUPTI now and then delivers no
+    record of a short session) is taken again, up to three times."""
+    call()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profiling.trace(None) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = profiling.device_activity(prof)["names"]
+        if names:
+            break
+    check(sum(names.values()) == 1 and "lk_block_cell_kernel" in next(iter(names)),
+          f"{tag}: one call ran {names}, want one lk_block_cell_kernel")
+    return next(iter(names))
 
 
 def bound(bytes_moved, flops):
@@ -608,6 +633,11 @@ def main() -> int:
 
     # 10. K5 and K6 vs plain, and vs the K3 and K4 kernels ---------------------
     lines = []
+    # The device ops of one K6 wrapper call at phase 14's point (LK level 0,
+    # every point tracked): one kernel.
+    shape, shift, args, active, eps = next(level_cases())
+    k6_node = one_node(torch, profiling, "K6's wrapper",
+                       lambda: lk_fn["v2"](*args, win=WIN, eps=eps, pad=PAD))
     for shape, shift, args, active, eps in level_cases():
         for name, old in (("block", "cell"), ("v2", "v1")):
             kw = dict(win=WIN, iters=30, eps=eps, search_radius=6, pad=PAD)
@@ -649,12 +679,44 @@ def main() -> int:
     lk_err["block"] = max(lk_err["block"], dmax)
     lines.append(f"{line} ({off:.2f} off-region reloads per tracked point, staged share "
                  f"{share:.3f}); {line_old}")
+    # K6 off the region on the same pair and guesses, every point tracked.
+    kw.pop("active")
+    every = torch.ones_like(active)
+    got = level_call(torch, lk_fn["v2"], prev, nxt, pts, guess, **kw)
+    plain_off = level_call(torch, plain_lk["v2"], prev, nxt, pts, guess, **kw)
+    share = lk_v1.staged_share(pts, guess, plain_off[2], hp, wp, pad=PAD)
+    off = (1.0 - share) * len(plain_off[2]["corners"]) / len(pts)
+    check(off > 1.0, f"K6 off the region: {off} off-region reloads per point <= 1")
+    dmax, line = compare_levels(torch, f"v2 off the region {(hp, wp)}", got, plain_off,
+                                every, 0.01, shift, same_iters=True)
+    _, line_old = compare_levels(torch, "against the v1 kernel", got,
+                                 level_call(torch, lk_fn["v1"], prev, nxt, pts, guess, **kw),
+                                 every, 0.01, shift, same_iters=True)
+    lk_err["v2"] = max(lk_err["v2"], dmax)
+    lines.append(f"{line} ({off:.2f} off-region reloads per point, staged share "
+                 f"{share:.3f}); {line_old}")
+    # K6 with phase 5's mask through its bare C entry, against the K4 kernel.
+    for shape, shift, args, active, eps in level_cases():
+        kw = dict(win=WIN, iters=30, eps=eps, search_radius=6, pad=PAD)
+        held = lk_timing.bare_entry(native, cuda_stream.current_stream, "svo_lk_level_v2",
+                                    args, dict(kw, active=active), stats=True)()
+        torch.cuda.synchronize()
+        flow, ok, counts = held[-3:]
+        got = (flow, ok, {"iters": counts[:, 0], "reloads": counts[:, 1]})
+        dmax, line = compare_levels(
+            torch, f"v2 with the mask (bare entry) {shape} eps {eps} against the v1 kernel",
+            got, level_call(torch, lk_fn["v1"], *args, active=active, **kw), active, eps,
+            shift, same_iters=True)
+        lk_err["v2"] = max(lk_err["v2"], dmax)
+        lines.append(line)
     empty = [no_points(torch, name, kernels, lk_bool, lambda name=name: lk_fn[name](
         args[0], args[1], args[2][:0], args[3][:0], pad=PAD)) for name in ("block", "v2")]
     print(f"[10/16] K5 (block) and K6 (v2) vs plain (K3's and K4's plain versions) and "
           f"vs the K3/K4 kernels, N={N_POINTS}, win {WIN}, 30 iters, K5 with phase 5's "
-          f"mask, K6 on every point: " + "; ".join(lines)
-          + f"; N = 0, empty and no launch counted: {', '.join(empty)}")
+          f"mask, K6's wrapper on every point and its bare entry with the mask: "
+          + "; ".join(lines)
+          + f"; N = 0, empty and no launch counted: {', '.join(empty)}; one K6 wrapper "
+          f"call at phase 14's point, one device op: {k6_node}")
 
     # 11. K7 vs plain over the roll probe's grid -------------------------------
     k7_err, k7_cases = 0.0, 0
@@ -728,6 +790,9 @@ def main() -> int:
                            probe_in["prev"], probe_in["next"], probe_in["pts"][:0],
                            probe_block.PAD, *lk_breakdown.VARIANTS[label]))
              for label in lk_breakdown.VARIANTS]
+    k8_node = {label: one_node(torch, profiling, f"K8 {label}",
+                               lambda label=label: lk_breakdown.run_variant(label, probe_in))
+               for label in lk_breakdown.VARIANTS}
     print(f"[12/16] K8 vs plain at {tuple(probe_in['prev'].shape)}, N={len(probe_in['pts'])}: "
           + ", ".join(f"{lb} relative error {k8[lb]['rel_err']:.2e} (max abs "
                       f"{k8[lb]['abs_err']:.3g})" for lb in split_labels)
@@ -735,7 +800,8 @@ def main() -> int:
           f"bit (against K5's plain version: ok agree "
           f"{float((k8_full[1] == k8_full_plain[1]).float().mean()):.4f}, max flow diff "
           f"{float((k8_full[0] - k8_full_plain[0]).abs().amax(-1)[both].max()):.2e} px); "
-          f"N = 0, empty and no launch counted: {', '.join(empty)}")
+          f"N = 0, empty and no launch counted: {', '.join(empty)}; one device op per "
+          f"call: " + ", ".join(f"{lb} {name}" for lb, name in k8_node.items()))
 
     # 13. This slice's paths: the probes, then their own timings ---------------
     probe_paths = {
@@ -809,14 +875,16 @@ def main() -> int:
     k2_bound, k2_by = bound(4 * (window_pixels(torch, h, w, iy, ix, P + 1) + n * P * P)
                             + 8 * n, 11 * n * P * P)
 
-    # K3-K6 at LK level 0: 1024 points on (408, 1408), eps 0.01; K6 on every
-    # point (it takes no mask), the others on the 770 of phase 5's mask. K3
-    # and K4 through probes/lk_timing.py (also at the lk_block probe's
-    # operating point): the kernel alone, its template phase and one
-    # iteration in a graph, the wrapper in a graph, back to back and on the
-    # host, iterations, reloads and the staged share; K5 and K6 here.
+    # K3-K6 at LK level 0: 1024 points on (408, 1408), eps 0.01; K6's wrapper
+    # on every point (it takes no mask), the others on the 770 of phase 5's
+    # mask. Through probes/lk_timing.py (also at the lk_block probe's
+    # operating point): the kernel alone (K6 with the mask, through its bare
+    # C entry), its template phase and one iteration in a graph, the wrapper
+    # in a graph, back to back and on the host, iterations, reloads and the
+    # staged share; the plain versions, the bounds and K6's nodes here.
     lkt = lk_timing.measure({"lk_cell": lk_cell, "lk_v1": lk_v1, "lk_block": lk_block,
-                             "native": native, "make_inputs": probe_block.make_inputs}, timing,
+                             "lk_v2": lk_v2, "native": native,
+                             "make_inputs": probe_block.make_inputs}, timing,
                             patch_timing.host_us, cuda_stream.current_stream,
                             bench=(frames[:lk_timing.BENCH_FRAMES], cam))
     hp, wp = LK_PADDED[0]
@@ -830,19 +898,13 @@ def main() -> int:
         st_k, st_p = {}, {}
         lk_fn[name](prev, nxt, pts, guess, stats=st_k, **kw)
         plain_lk[name](prev, nxt, pts, guess, stats=st_p, **kw)
-        call = lambda name=name, kw=kw: lk_fn[name](prev, nxt, pts, guess, **kw)
         plain = lambda name=name, kw=kw: plain_lk[name](prev, nxt, pts, guess, **kw)
         b_ms, b_by = lk_level_bound(torch, st_k, st_p["corners"], pts,
                                     active if masked[name] else torch.ones_like(active),
                                     hp, wp, "cell" if name in ("cell", "block") else "v1",
-                                    fused=name != "v2")
-        if name in lkt["smoke"]:
-            lk_t[name] = dict(lkt["smoke"][name], plain_ms=plain_time(plain, iters=5))
-        else:
-            ms, plain_ms = timed(call, plain, plain_iters=5)
-            lk_t[name] = {"ms": ms, "plain_ms": plain_ms,
-                          "graph_ms": timing.graph_ms(call, calls=30)}
-        lk_t[name].update(bound_ms=b_ms, bound_by=b_by)
+                                    io=None if masked[name] else len(pts) * (16 + 9))
+        lk_t[name] = dict(lkt["smoke"][name], plain_ms=plain_time(plain, iters=5),
+                          bound_ms=b_ms, bound_by=b_by)
 
     x = torch.rand(patch_timing.K7_SHAPE, device="cuda")
     a = torch.tensor([[patch_timing.K7_AMOUNT]], dtype=torch.int32, device="cuda")
@@ -875,9 +937,10 @@ def main() -> int:
                 f"{us(t['library_graph_ms'])} (max diff {t['library_max_diff']}), bound "
                 f"{b_ms * 1e3:.3f} us ({b_by}), wrapper host time {t['host_us']:.2f} us")
 
-    print("[14/16] K3/K4/K5 (probes/lk_timing.py; graphs of "
+    print("[14/16] K3-K6 (probes/lk_timing.py; graphs of "
           f"{lk_timing.GRAPH_CALLS} calls; staged share at margins {lk_timing.MARGINS}, "
-          f"shipped {lk_v1.STAGE_MARGIN}): " + "; ".join(
+          f"shipped {lk_v1.STAGE_MARGIN}; K6's wrapper on every point, one device op "
+          f"(phase 10), its kernel alone with the mask): " + "; ".join(
               f"{lk_name[k]} {point}: kernel alone {us(t['kernel_graph_ms'])}, template "
               f"phase {us(t['template_graph_ms'])}, one iteration "
               f"{us(t['one_iter_graph_ms'])}, wrapper in a graph {us(t['graph_ms'])}, b2b "
@@ -915,7 +978,9 @@ def main() -> int:
           + ", ".join(f"{lb} kernel {t['ms'] * 1e3:.2f} us, in a graph "
                       f"{t['graph_ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
                       f"bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})"
-                      for lb, t in k8_t.items()) + ", no single library call")
+                      for lb, t in k8_t.items()) + ", no single library call; one device op "
+          "per call (phase 12); the split in graphs of 30 calls (phase 13): "
+          + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in k8_split.items()))
 
     # 15. Eager against graph, in turns; a profiled replay per path ---------
     lines, profiles = [], []
@@ -969,6 +1034,8 @@ def main() -> int:
         report.append({"name": counter, "route": "cuda", "source": src + source,
                        "replaces": replaces, "max_abs_err": lk_err[name], **lk_t[name],
                        "library_ms": None})
+        if name == "v2":
+            report[-1]["device_ops_per_call"] = 1  # one_node's check in phase 10
         if name in lkt["bench"]:
             report[-1].update(probe_point=lkt["probe"][name], bench_point=lkt["bench"][name])
     report.append({"name": "roll", "route": "cuda", "source": src + "roll.cu",
@@ -983,7 +1050,10 @@ def main() -> int:
     report.append({"name": "level_track_block_split", "route": "cuda",
                    "source": src + "lk_block.cu",
                    "replaces": "scripts/probe_lk_breakdown.py:42", "max_abs_err": k8_err,
-                   "full_variant": "K5's kernel (lk_block_cell_kernel) with the raw tail",
+                   "kernel": "K5's (lk_block_cell_kernel): full its body with the raw "
+                             "tail, tmpl its staging and template phase, reload also its "
+                             "window read and 8 dots per forced round",
+                   "device_ops_per_call": 1,  # one_node's check in phase 12
                    "max_rel_err": max(k8[lb]["rel_err"] for lb in split_labels),
                    **k8_t["reload3"], "library_ms": None, "variants": k8_t,
                    "split_graph_ms": k8_split})

@@ -14,30 +14,34 @@
   ``full`` (K5's own kernel, as the TPU probe builds it with K5's factory),
   to time where an LK level call's time goes.
 
-CUDA kernels in ``csrc/lk_block.cu``, one warp per point. K5
-(``svo_lk_level_block``) stages the template window and a region of the
-next image once per point, as K3 does, and finishes the level itself with
-K3's contract (``lk_v1.launch``: a bool ``active`` or None, flow = guess +
-delta, ok with the ``search_radius`` test, ``stats`` only when asked), so a
-call is one kernel. K8 (``svo_lk_block_split``) runs ``full`` on K5's kernel
-with the raw delta and gate, and ``tmpl``/``reload`` on the template K6
-shares. The wrappers route by device as ``lk_v1.level_track_v1`` does (a
-CPU tensor takes the plain version, a CUDA tensor launches the kernel,
-anything else raises) and count their launches in
-``level_track_block.launches`` and ``level_track_block_split.launches``
-(none at N = 0). The JAX wrapper's N % 8 pad and the Mosaic shapes are not
-needed: any N works.
+CUDA kernel ``csrc/lk_block.cu`` (``lk_block_cell_kernel``), one warp per
+point, shared with K6 (``lk_v2``): it stages the template window and a
+region of the next image once per point, as K3 does. K5
+(``svo_lk_level_block``) finishes the level itself with K3's contract
+(``lk_v1.launch``: a bool ``active`` or None, flow = guess + delta, ok with
+the ``search_radius`` test, ``stats`` only when asked), so a call is one
+kernel. K8 (``svo_lk_block_split``) runs every variant on the same kernel:
+``full`` is K5's body with the raw delta and gate, ``tmpl`` and ``reload``
+are K5's staging and template phase and (``reload``) K5's window read and
+8-dot pass per forced round, so the split measures the phases of the
+kernel ``full`` runs. Its C entry takes no mask and no guess (zero
+guesses), so a call allocates only its outputs and is one kernel. The
+wrappers route by device as ``lk_v1.level_track_v1`` does (a CPU tensor
+takes the plain version, a CUDA tensor launches the kernel, anything else
+raises) and count their launches in ``level_track_block.launches`` and
+``level_track_block_split.launches`` (none at N = 0). The JAX wrapper's
+N % 8 pad and the Mosaic shapes are not needed: any N works.
 """
 from __future__ import annotations
 
 import torch
 
-from . import lk_cell, lk_dense, lk_v1, patch
+from . import cuda_stream, lk_cell, lk_dense, lk_v1, native, patch
 
-# Points per CTA of csrc/lk_block.cu (one warp each): the template of K6 and
-# K8 tmpl/reload, and K5's kernel; the margin (px) of the region of the next
-# image K5 stages around the window at the guess (K3's).
-POINTS_PER_CTA, CELL_POINTS_PER_CTA, STAGE_MARGIN = 4, 2, 7
+# Points per CTA of csrc/lk_block.cu (one warp each): K5 and K8, and K6; the
+# margin (px) of the region of the next image staged around the window at
+# the guess (K3's).
+CELL_POINTS_PER_CTA, ITER_POINTS_PER_CTA, STAGE_MARGIN = 2, 2, 7
 # K8's variants and their C mode numbers.
 SPLIT_MODES = {"full": 0, "tmpl": 1, "reload": 2}
 # The JAX probe's operating point for ``full`` (probe_lk_breakdown.py:36-38):
@@ -45,20 +49,25 @@ SPLIT_MODES = {"full": 0, "tmpl": 1, "reload": 2}
 SPLIT_ITERS, SPLIT_EPS = 30, 0.01
 
 
-def smem_bytes(win: int) -> int:
-    """Shared memory of one CTA of K6's and K8 tmpl/reload's template in
-    csrc/lk_block.cu: per point the (win+3)^2 window buffer, the (win+2)^2
-    field and T/Ix/Iy."""
-    return 4 * POINTS_PER_CTA * ((win + 3) ** 2 + (win + 2) ** 2 + 3 * win * win)
+def _slice_floats(win: int, template: bool) -> int:
+    """Floats of one point's slice of csrc/lk_block.cu's kernel: the
+    gradients (Ix, Iy), the template T if ``template``, the (win+3)^2 window
+    buffer, the staged region of the next image and the (win+2)^2 field,
+    rounded up to even."""
+    side = win + 1 + 2 * STAGE_MARGIN
+    floats = (3 if template else 2) * win * win + (win + 3) ** 2 + side * side + (win + 2) ** 2
+    return floats + floats % 2
 
 
 def cell_smem_bytes(win: int) -> int:
-    """Shared memory of one CTA of K5's kernel (and K8 ``full``): per point
-    the gradients (Ix, Iy), the (win+3)^2 window buffer, the staged region of
-    the next image and the (win+2)^2 field, in floats rounded up to even."""
-    side = win + 1 + 2 * STAGE_MARGIN
-    floats = 2 * win * win + (win + 3) ** 2 + side * side + (win + 2) ** 2
-    return 4 * CELL_POINTS_PER_CTA * (floats + floats % 2)
+    """Shared memory of one CTA of the kernel running K5 or K8."""
+    return 4 * CELL_POINTS_PER_CTA * _slice_floats(win, template=False)
+
+
+def iter_smem_bytes(win: int) -> int:
+    """Shared memory of one CTA of the kernel running K6, whose slice also
+    keeps the template T."""
+    return 4 * ITER_POINTS_PER_CTA * _slice_floats(win, template=True)
 
 
 def level_track_block_reference(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
@@ -162,19 +171,26 @@ def level_track_block_split(img_prev_pad: torch.Tensor, img_next_pad: torch.Tens
     round's 8 dots, (N, rounds, 8) (empty but for ``reload``).
     """
     n_rounds = _split_args(mode, rounds)
-    guess = torch.zeros_like(pts)
-    lk_v1.check_inputs(img_prev_pad, img_next_pad, pts, guess, None, win)
+    lk_v1.check_inputs(img_prev_pad, img_next_pad, pts, None, None, win)
     if img_prev_pad.device.type == "cpu":
         return level_track_block_split_reference(img_prev_pad, img_next_pad, pts, pad,
                                                  mode, rounds, win, min_eig)
-    dots = torch.empty((pts.shape[0], n_rounds, 8), dtype=torch.float32,
-                       device=pts.device)
-    flow, ok = lk_v1.launch("svo_lk_block_split", img_prev_pad, img_next_pad, pts,
-                            guess, win, SPLIT_ITERS, SPLIT_EPS, min_eig, pad, None, None,
-                            smem=cell_smem_bytes(win) if mode == "full" else smem_bytes(win),
-                            extra=(SPLIT_MODES[mode], n_rounds, dots.data_ptr()))
-    if len(pts):
-        level_track_block_split.launches += 1
+    lk_v1.check_launch(img_prev_pad.device, win, cell_smem_bytes(win))
+    n = pts.shape[0]
+    flow, ok = pts.new_empty((n, 2)), pts.new_empty(n)
+    dots = pts.new_empty((n, n_rounds, 8))
+    if n == 0:
+        return flow, ok, dots
+    prev, nxt, pts = img_prev_pad.contiguous(), img_next_pad.contiguous(), pts.contiguous()
+    (hp, wp), index = prev.shape, prev.get_device()
+    err = native.entry("svo_lk_block_split")(
+        prev.data_ptr(), nxt.data_ptr(), hp, wp, pts.data_ptr(), None, n, win, SPLIT_ITERS,
+        SPLIT_EPS * SPLIT_EPS, min_eig, pad, flow.data_ptr(), ok.data_ptr(),
+        SPLIT_MODES[mode], n_rounds, dots.data_ptr(), index,
+        cuda_stream.current_stream(index))
+    if err != 0:
+        raise RuntimeError(f"svo_lk_block_split launch failed: cudaError {err}")
+    level_track_block_split.launches += 1
     return flow, ok, dots
 
 

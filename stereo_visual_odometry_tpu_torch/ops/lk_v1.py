@@ -13,8 +13,9 @@ CUDA kernel ``csrc/lk_level.cu`` (entry ``svo_lk_level_v1``), plain version
 ``level_track_v1_reference``. The wrapper routes by the tensors' device as
 ``patch.py`` does: a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel and adds one to ``level_track_v1.launches`` (N = 0
-launches and counts nothing), anything else raises. K3 (``lk_cell``) shares
-this module's checks and launcher.
+launches and counts nothing), anything else raises. K3 (``lk_cell``), K5
+and K6 (``lk_block``, ``lk_v2``) share this module's checks and launcher,
+and K8 its checks.
 
 The kernel does the JAX wrapper's tail itself (``finish``: flow = guess +
 delta and ok = gate with the search-radius test), reads ``active`` as the
@@ -36,10 +37,6 @@ _SMEM_LIMIT = 227 * 1024
 # csrc/lk_level.cu's threads per CTA and the margin (px) of the region of the
 # next image it stages around the window at the guess.
 THREADS, STAGE_MARGIN = 64, 7
-# The C entries that finish the level in the kernel (K3, K4, K5). The others
-# that ``launch`` serves (K6, K8) return the raw delta and a float32 ok, take
-# ``active`` as float32 and always write the statistics.
-_FINISHED = ("svo_lk_level_cell", "svo_lk_level_v1", "svo_lk_level_block")
 
 
 def _smem_bytes(win: int) -> int:
@@ -80,25 +77,27 @@ def staged(pts: torch.Tensor, guess: torch.Tensor, stats: dict, hp: int, wp: int
 
 
 def check_inputs(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
-                 pts: torch.Tensor, guess: torch.Tensor,
+                 pts: torch.Tensor, guess: torch.Tensor | None,
                  active: torch.Tensor | None, win: int) -> None:
-    """What K3 and K4 take: two (Hp, Wp) float32 levels, (N, 2) float32
-    points and guesses, an optional (N,) bool mask, all on one device."""
+    """What K3-K6 and K8 take: two (Hp, Wp) float32 levels, (N, 2) float32
+    points and guesses (K8: none), an optional (N,) bool mask, all on one
+    device."""
     if img_prev_pad.shape != img_next_pad.shape or img_prev_pad.dim() != 2:
         raise ValueError(f"levels must be two (Hp, Wp) images of one shape, got "
                          f"{tuple(img_prev_pad.shape)} and {tuple(img_next_pad.shape)}")
-    for name, t in (("img_prev_pad", img_prev_pad), ("img_next_pad", img_next_pad),
-                    ("pts", pts), ("guess", guess)):
+    points = [("pts", pts)] + ([] if guess is None else [("guess", guess)])
+    for name, t in [("img_prev_pad", img_prev_pad), ("img_next_pad", img_next_pad), *points]:
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
     n = pts.shape[0]
-    if pts.shape != (n, 2) or guess.shape != (n, 2):
-        raise ValueError(f"pts and guess must be (N, 2), got {tuple(pts.shape)} "
-                         f"and {tuple(guess.shape)}")
+    if any(t.shape != (n, 2) for _, t in points):
+        raise ValueError(f"pts and guess must be (N, 2), got "
+                         f"{[tuple(t.shape) for _, t in points]}")
     if active is not None and (active.shape != (n,) or active.dtype != torch.bool):
         raise ValueError(f"active must be (N,) bool, got {active.dtype} "
                          f"{tuple(active.shape)}")
-    tensors = [img_prev_pad, img_next_pad, pts, guess] + ([] if active is None else [active])
+    tensors = ([img_prev_pad, img_next_pad] + [t for _, t in points]
+               + ([] if active is None else [active]))
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"inputs on several devices: {[str(t.device) for t in tensors]}")
     hp, wp = img_prev_pad.shape
@@ -114,55 +113,47 @@ def finish(guess: torch.Tensor, flow_d: torch.Tensor, ok: torch.Tensor,
     return guess + flow_d, ok & inside
 
 
-def launch(entry: str, img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
-           pts: torch.Tensor, guess: torch.Tensor, win: int, iters: int, eps: float,
-           min_eig: float, pad: int, active: torch.Tensor | None,
-           stats: dict | None, search_radius: float = 0.0, smem: int | None = None,
-           extra: tuple = ()):
-    """Launch an LK level kernel on CUDA tensors through the lean path
-    (``native.entry``, the raw current stream); with N = 0 it launches
-    nothing and returns empty outputs.
-
-    ``entry`` is K3, K4 or K5, which finish the level in the kernel and
-    return (flow (N, 2) = guess + delta, ok (N,) bool: the gate and the
-    ``search_radius`` test); or K6, or K8 with its mode, rounds and dots
-    pointer as ``extra`` (the C arguments after ``stats``), which return the
-    raw (delta (N, 2), ok (N,) float32: the gate as 0/1, or K8's checksum).
-    ``smem`` is the kernel's shared memory per CTA (K3/K4's by default).
-    ``stats``, if given, receives each point's iterations and window
-    reloads."""
-    dev = img_prev_pad.device
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    smem = _smem_bytes(win) if smem is None else smem
+def check_launch(device: torch.device, win: int, smem: int) -> None:
+    """Raise unless a kernel of ``smem`` B of shared memory per CTA can
+    launch on ``device``."""
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
     if smem > _SMEM_LIMIT:
         raise ValueError(f"win={win} needs {smem} B of shared memory, "
                          f"more than the {_SMEM_LIMIT} B a CTA can hold")
+
+
+def launch(entry: str, img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
+           pts: torch.Tensor, guess: torch.Tensor, win: int, iters: int, eps: float,
+           min_eig: float, pad: int, active: torch.Tensor | None,
+           stats: dict | None, search_radius: float, smem: int | None = None):
+    """Launch an LK level kernel (K3-K6) on CUDA tensors through the lean
+    path (``native.entry``, the raw current stream); with N = 0 it launches
+    nothing and returns empty outputs. The kernel finishes the level: it
+    returns (flow (N, 2) = guess + delta, ok (N,) bool: the gate and the
+    ``search_radius`` test). ``smem`` is the kernel's shared memory per CTA
+    (K3/K4's by default). ``stats``, if given, receives each point's
+    iterations and window reloads."""
+    smem = _smem_bytes(win) if smem is None else smem
+    check_launch(img_prev_pad.device, win, smem)
     n = pts.shape[0]
-    finished = entry in _FINISHED
     flow = pts.new_empty((n, 2))
-    ok = pts.new_empty(n, dtype=torch.bool if finished else torch.float32)
-    counts = (None if finished and stats is None
-              else pts.new_empty((n, 2), dtype=torch.int32))
+    ok = pts.new_empty(n, dtype=torch.bool)
+    counts = None if stats is None else pts.new_empty((n, 2), dtype=torch.int32)
     if stats is not None:
         stats["iters"], stats["reloads"] = counts[:, 0], counts[:, 1]
     if n == 0:
         return flow, ok
     prev, nxt = img_prev_pad.contiguous(), img_next_pad.contiguous()
     pts, guess = pts.contiguous(), guess.contiguous()
-    if finished:
-        act = None if active is None else active.contiguous().data_ptr()
-        args = (act, n, win, iters, eps * eps, min_eig, pad, search_radius)
-    else:
-        act = (torch.ones(n, dtype=torch.float32, device=dev) if active is None
-               else active.to(torch.float32))
-        args = (act.data_ptr(), n, win, iters, eps * eps, min_eig, pad)
+    act = None if active is None else active.contiguous().data_ptr()
     hp, wp = prev.shape
     index = prev.get_device()
     err = native.entry(entry)(
-        prev.data_ptr(), nxt.data_ptr(), hp, wp, pts.data_ptr(), guess.data_ptr(), *args,
-        flow.data_ptr(), ok.data_ptr(), None if counts is None else counts.data_ptr(),
-        *extra, index, cuda_stream.current_stream(index))
+        prev.data_ptr(), nxt.data_ptr(), hp, wp, pts.data_ptr(), guess.data_ptr(), act, n,
+        win, iters, eps * eps, min_eig, pad, search_radius, flow.data_ptr(), ok.data_ptr(),
+        None if counts is None else counts.data_ptr(), index,
+        cuda_stream.current_stream(index))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     return flow, ok

@@ -9,10 +9,18 @@ active``. Per point that is K4's sequence of iterations; the port's kernel
 stops a converged point instead, which is the same for finite steps. Like
 the JAX kernel it takes no ``active`` mask: every point is tracked.
 
-CUDA kernel ``csrc/lk_block.cu`` (one warp per point, entry
-``svo_lk_level_v2``). The wrapper routes by device as
-``lk_v1.level_track_v1`` does and counts its launches in
-``level_track_v2.launches`` (none at N = 0).
+CUDA kernel ``csrc/lk_block.cu`` (entry ``svo_lk_level_v2``): K5's kernel
+(``lk_block``: one warp per point, the template window and a region of the
+next image staged once per point, a window off the region read with each
+lane's loads in flight together) with K4's per-iteration body, which keeps the
+template T beside the gradients (``lk_block.iter_smem_bytes``). It has
+K4's C contract and finishes the level itself (flow = guess + delta, ok
+with the ``search_radius`` test, ``stats`` only when asked), so a level
+call is one kernel. Its C entry takes K4's bool mask, which the wrapper
+leaves null (the JAX signature has no ``active``): the LK timing probe
+passes K4's mask through the bare entry to time K6 on K4's calls. The
+wrapper routes by device as ``lk_v1.level_track_v1`` does and counts its
+launches in ``level_track_v2.launches`` (none at N = 0).
 """
 from __future__ import annotations
 
@@ -47,12 +55,12 @@ def level_track_v2(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
     if img_prev_pad.device.type == "cpu":
         return level_track_v2_reference(img_prev_pad, img_next_pad, pts, guess, win,
                                         iters, eps, min_eig, search_radius, pad, stats)
-    flow_d, ok = lk_v1.launch("svo_lk_level_v2", img_prev_pad, img_next_pad, pts, guess,
-                              win, iters, eps, min_eig, pad, None, stats,
-                              smem=lk_block.smem_bytes(win))
+    out = lk_v1.launch("svo_lk_level_v2", img_prev_pad, img_next_pad, pts, guess, win,
+                       iters, eps, min_eig, pad, None, stats, search_radius,
+                       smem=lk_block.iter_smem_bytes(win))
     if len(pts):
         level_track_v2.launches += 1
-    return lk_v1.finish(guess, flow_d, ok > 0, search_radius)
+    return out
 
 
 level_track_v2.launches = 0

@@ -49,26 +49,25 @@ CXX_FLAGS = ("-std=c++20", "-O2", "-fPIC", "-shared", "-w")
 TORCH_LIBS = ("c10", "c10_cuda", "torch_cpu", "torch_python")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# The LK level kernel K6 (and K8, with its extra arguments) takes: prev,
-# next, hp, wp, pts, guess, active (float32), n, win, iters, eps^2, min_eig,
-# pad, flow (delta), ok (float32), stats, device, stream.
-_LK_LEVEL = [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P, _I, _P]
-# K3, K4 and K5 finish the level in the kernel: the same, with active as bool
-# bytes (or null), the search radius after pad, flow = guess + delta, ok as
-# bool and stats optional (null).
-_LK_FUSED = _LK_LEVEL[:13] + [_F] + _LK_LEVEL[13:]
+# The LK level kernels K3-K6 finish the level in the kernel and take: prev,
+# next, hp, wp, pts, guess, active (bool bytes, or null), n, win, iters,
+# eps^2, min_eig, pad, search radius, flow (guess + delta), ok (bool), stats
+# (or null), device, stream.
+_LK_LEVEL = [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _P, _P, _P, _I, _P]
 # C entry points of csrc/: name -> argtypes (all return a cudaError_t as int).
 _SIGNATURES = {
     # img, hp, wp, corners, n, Sh, Sw, out, device, stream
     "svo_extract_windows_int": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P],
     # img, h, w (unpadded), centers, n, P, pad, out, device, stream
     "svo_extract_patches": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P],
-    "svo_lk_level_cell": _LK_FUSED,
-    "svo_lk_level_v1": _LK_FUSED,
-    "svo_lk_level_block": _LK_FUSED,
+    "svo_lk_level_cell": _LK_LEVEL,
+    "svo_lk_level_v1": _LK_LEVEL,
+    "svo_lk_level_block": _LK_LEVEL,
     "svo_lk_level_v2": _LK_LEVEL,
-    # the LK level arguments up to stats, then mode, rounds, dots, device, stream
-    "svo_lk_block_split": _LK_LEVEL[:-2] + [_I, _I, _P, _I, _P],
+    # prev, next, hp, wp, pts, guess (or null: zero), n, win, iters, eps^2,
+    # min_eig, pad, flow, ok (float32), mode, rounds, dots, device, stream
+    "svo_lk_block_split": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _I, _I,
+                           _P, _I, _P],
     # x, rows, cols, amt, axis, out, device, stream
     "svo_roll": [_P, _I, _I, _P, _I, _P, _I, _P],
 }

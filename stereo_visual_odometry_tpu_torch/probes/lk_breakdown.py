@@ -13,10 +13,18 @@ N = 1024, win 21, 30 iterations, eps 0.01).
     python -m stereo_visual_odometry_tpu_torch.probes.lk_breakdown --device cpu \\
         --height 64 --width 256 --points 16
 
+All four variants run on K5's own kernel (``csrc/lk_block.cu``, one node
+per call): ``tmpl`` is its staging (the template window and the region of
+the next image) and template phase, ``reload`` adds K5's window read and
+8-dot pass per forced round (with zero guesses the rounds' windows lie in
+the staged region, as most of K5's reloads do), and ``full`` is K5's body.
+So the split measures the phases of the kernel a K5 call runs.
+
 It prints each variant's error against its plain version and its µs per
 call, then the split: the template, one reload round ((reload3 - reload1)
-/ 2), and the rest of a full call (full - tmpl). With ``--device cpu`` the
-wrapper runs the plain versions, timed by the host clock.
+/ 2), and the rest of a full call (full - tmpl: K5's iterations and their
+reloads). With ``--device cpu`` the wrapper runs the plain versions, timed
+by the host clock.
 """
 from __future__ import annotations
 

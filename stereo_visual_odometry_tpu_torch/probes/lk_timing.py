@@ -1,6 +1,7 @@
-"""Probe: the LK level kernels K3 (``lk_kernel='cell'``), K4 (``'v1'``) and
-K5 (``lk_block``, K3's function, a warp per point) timed on the card, with
-their iteration statistics.
+"""Probe: the LK level kernels K3 (``lk_kernel='cell'``), K4 (``'v1'``), K5
+(``lk_block``, K3's function, a warp per point) and K6 (``lk_v2``, K4's
+function, a warp per point) timed on the card, with their iteration
+statistics.
 
 At two operating points, ``smoke`` (``chip_smoke.py`` phase 14's: a smooth
 texture moved by (2.3, -1.4) px on LK level 0 padded to (408, 1408), 1024
@@ -17,16 +18,23 @@ it times per kernel:
   (every node it launches) and back to back (CUDA events, 200 calls);
 * ``host_us``: the wrapper's host time per call (no sync);
 * the iterations and reloads per tracked point (mean, p99, max), from the
-  kernel's statistics;
-* for a kernel that stages a region (K3, K4 and K5 on this tree) also
-  ``staged_share``: the share of reloads that fall inside the region of the
-  next image the kernel stages, by margin, from the plain versions' reloads.
+  kernel's statistics (the bare C entry's);
+* for a kernel that stages a region (one with the finished contract, 19 C
+  arguments: K3-K6 on this tree) also ``staged_share``: the share of
+  reloads that fall inside the region of the next image the kernel stages,
+  by margin, from the plain versions' reloads.
+
+K6's wrapper takes no mask (the JAX signature has none), so its wrapper
+times track every point; its kernel alone and its statistics take the
+operating point's mask through the bare C entry, which has K4's contract,
+so that they count K4's work.
 
 A third point, ``bench``, is the slice itself: every level call that
 ``System.run_chunked`` makes with ``lk_kernel='cell'`` (``'v1'``) on the
 first 8 frames of ``chip_smoke.py``'s bench sequence, recorded as it runs
-(K5, on no ``System`` path, is timed on K3's calls: the same function); for
-each, the kernel alone in a CUDA graph (mean and largest over the calls),
+(K5 and K6, on no ``System`` path, are timed on K3's and K4's calls, with
+their masks: the same functions); for each, the kernel alone in a CUDA
+graph (mean and largest over the calls),
 the iterations per tracked point over all the calls, the staged share
 over all their reloads and the reloads off the region per point (and those
 of each call's most iterating point).
@@ -40,8 +48,9 @@ A/B on one machine in one run, in turns) through the calls the wrappers,
 ``probes/patch_timing.host_us`` have had since they were written. The bare C
 entry is called with that checkout's contract, told by its argument count:
 18 (the float32 mask, the raw delta and gate, the statistics always
-written: older K3/K4 and K5) or 19 (the bool mask, the search radius, the
-finished flow and ok, no statistics). Prints one JSON object.
+written: older K3-K6) or 19 (the bool mask, the search radius, the
+finished flow and ok, the statistics only when asked). Prints one JSON
+object.
 """
 from __future__ import annotations
 
@@ -59,8 +68,8 @@ SHIFT = (2.3, -1.4)           # the smoke pair's motion, (x, y) px
 GRAPH_CALLS, B2B_CALLS = 30, 200
 MARGINS = (0, 2, 4, 7, 10, 14)  # staged-region margins whose share is reported
 ENTRIES = {"cell": "svo_lk_level_cell", "v1": "svo_lk_level_v1",
-           "block": "svo_lk_level_block"}
-BENCH_CALLS = {"cell": "cell", "v1": "v1", "block": "cell"}  # whose recorded calls
+           "block": "svo_lk_level_block", "v2": "svo_lk_level_v2"}
+BENCH_CALLS = {"cell": "cell", "v1": "v1", "block": "cell", "v2": "v1"}  # whose calls
 # The bench sequence (the JAX bench's, bench.py:31-49): 376x1241 frames,
 # edge-padded to 384x1280; the bench point takes its first BENCH_FRAMES.
 H_RAW, W_RAW, H, W = 376, 1241, 384, 1280
@@ -152,12 +161,13 @@ def operating_points(make_probe_inputs) -> dict:
             "probe": (probe["prev"], probe["next"], probe["pts"], probe["guess"], None)}
 
 
-def bare_entry(native, stream, name, args, kw, iters=None):
-    """The C entry of K3, K4 or K5 on preallocated outputs, as a no-argument
-    call that raises on a launch error: ``args`` (prev, next, pts, guess) and
-    ``kw`` as a wrapper takes them, ``iters`` in place of ``kw``'s if given.
-    The raw stream is read at each call (in a capture, the capturing
-    stream)."""
+def bare_entry(native, stream, name, args, kw, iters=None, stats=False):
+    """The C entry of K3-K6 on preallocated outputs, as a no-argument call
+    that raises on a launch error and returns the buffers it writes (the
+    per-point iterations and reloads last, with ``stats``): ``args`` (prev,
+    next, pts, guess) and ``kw`` as K4's wrapper takes them, ``iters`` in
+    place of ``kw``'s if given. The raw stream is read at each call (in a
+    capture, the capturing stream)."""
     prev, nxt, pts, guess = (t.contiguous() for t in args)
     active = kw.get("active")
     iters = kw["iters"] if iters is None else iters
@@ -169,10 +179,11 @@ def bare_entry(native, stream, name, args, kw, iters=None):
     if len(fn.argtypes) == 19:
         ok = torch.empty(n, dtype=torch.bool, device="cuda")
         act = None if active is None else active.contiguous()
-        held = (prev, nxt, pts, guess, act, flow, ok)
+        counts = torch.empty((n, 2), dtype=torch.int32, device="cuda") if stats else None
+        held = (prev, nxt, pts, guess, act, flow, ok) + ((counts,) if stats else ())
         args = head + (None if act is None else act.data_ptr(), n, kw["win"], iters, eps2,
                        min_eig, kw["pad"], float(kw["search_radius"]), flow.data_ptr(),
-                       ok.data_ptr(), None, index)
+                       ok.data_ptr(), counts.data_ptr() if stats else None, index)
     else:
         ok = torch.empty(n, dtype=torch.float32, device="cuda")
         counts = torch.empty((n, 2), dtype=torch.int32, device="cuda")
@@ -227,20 +238,30 @@ def off_region(staged, calls, plain) -> dict:
             "slowest_point": sum(slowest) / max(len(slowest), 1)}
 
 
+def counts(native, stream, name, args, kw) -> torch.Tensor:
+    """Each point's (iterations, reloads) of one bare C entry call."""
+    out = bare_entry(native, stream, name, args, kw, stats=True)()[-1]
+    torch.cuda.synchronize()
+    return out
+
+
 def measure(ops: dict, timing, host_us, stream, bench=None) -> dict:
     """Everything in the module note, per operating point and kernel, for
-    the modules in ``ops`` (``lk_cell``, ``lk_v1``, ``lk_block``,
+    the modules in ``ops`` (``lk_cell``, ``lk_v1``, ``lk_block``, ``lk_v2``,
     ``native``, and ``make_inputs`` of ``probes/lk_block``). ``bench``: the
     bench frames and camera (``bench_sequence``'s) for the bench point,
     which is skipped without them."""
+    native = ops["native"]
     fns = {"cell": ops["lk_cell"].level_track_cell, "v1": ops["lk_v1"].level_track_v1,
-           "block": ops["lk_block"].level_track_block}
+           "block": ops["lk_block"].level_track_block, "v2": ops["lk_v2"].level_track_v2}
+    # K6's plain version takes no mask; with one, its function is K4's.
     plain = {"cell": ops["lk_cell"].level_track_cell_reference,
              "v1": ops["lk_v1"].level_track_v1_reference,
-             "block": ops["lk_block"].level_track_block_reference}
+             "block": ops["lk_block"].level_track_block_reference,
+             "v2": ops["lk_v1"].level_track_v1_reference}
     share = getattr(ops["lk_v1"], "staged_share", None)
-    stages = {"cell": share is not None, "v1": share is not None,
-              "block": hasattr(ops["lk_block"], "STAGE_MARGIN")}
+    stages = {name: share is not None and len(native.entry(entry).argtypes) == 19
+              for name, entry in ENTRIES.items()}
     out = {}
     for point, inputs in operating_points(ops["make_inputs"]).items():
         prev, nxt, pts, guess, active = inputs
@@ -250,20 +271,20 @@ def measure(ops: dict, timing, host_us, stream, bench=None) -> dict:
         tracked = torch.ones(len(pts), dtype=torch.bool, device="cuda") if active is None \
             else active
         for name, fn in fns.items():
-            wrapper = lambda fn=fn, kw=kw: fn(prev, nxt, pts, guess, **kw)
-            entry = lambda iters: timing.graph_ms(
-                bare_entry(ops["native"], stream, ENTRIES[name], inputs[:4], kw, iters),
+            wkw = {k: v for k, v in kw.items() if k != "active"} if name == "v2" else kw
+            wrapper = lambda fn=fn, wkw=wkw: fn(prev, nxt, pts, guess, **wkw)
+            entry = lambda iters, name=name: timing.graph_ms(
+                bare_entry(native, stream, ENTRIES[name], inputs[:4], kw, iters),
                 calls=GRAPH_CALLS)
-            st = {}
-            fn(prev, nxt, pts, guess, stats=st, **kw)
+            st = counts(native, stream, ENTRIES[name], inputs[:4], kw)
             res = {"kernel_graph_ms": entry(None),
                    "template_graph_ms": entry(0),
                    "one_iter_graph_ms": entry(1),
                    "graph_ms": timing.graph_ms(wrapper, calls=GRAPH_CALLS),
                    "ms": timing.events_ms(wrapper, iters=B2B_CALLS),
                    "host_us": host_us(wrapper),
-                   "iters": distribution(st["iters"][tracked]),
-                   "reloads": distribution(st["reloads"][tracked])}
+                   "iters": distribution(st[:, 0][tracked]),
+                   "reloads": distribution(st[:, 1][tracked])}
             if stages[name]:
                 res["staged_share"] = shares(share, [(inputs[:4], kw)], plain[name])
             out.setdefault(point, {})[name] = res
@@ -273,13 +294,12 @@ def measure(ops: dict, timing, host_us, stream, bench=None) -> dict:
         if source not in recorded:
             recorded[source] = bench_level_calls(source, *bench)
         calls = recorded[source]
-        ms = [timing.graph_ms(bare_entry(ops["native"], stream, ENTRIES[name], args, kw),
+        ms = [timing.graph_ms(bare_entry(native, stream, ENTRIES[name], args, kw),
                               calls=GRAPH_CALLS) for args, kw in calls]
         its = []
         for args, kw in calls:
-            st = {}
-            fns[name](*args, stats=st, **kw)
-            its.append(st["iters"] if kw.get("active") is None else st["iters"][kw["active"]])
+            it = counts(native, stream, ENTRIES[name], args, kw)[:, 0]
+            its.append(it if kw.get("active") is None else it[kw["active"]])
         res = {"calls": len(calls), "recorded_on": source,
                "kernel_graph_ms": sum(ms) / len(ms),
                "kernel_graph_ms_max": max(ms), "iters": distribution(torch.cat(its))}
@@ -302,7 +322,7 @@ def main(argv=None) -> int:
         raise RuntimeError("no CUDA device: this probe times the kernels on an NVIDIA GPU")
     sys.path[0] = str(Path(args.root).resolve())  # not this file's directory
     from stereo_visual_odometry_tpu_torch.ops import lk_block as lk_block_op
-    from stereo_visual_odometry_tpu_torch.ops import lk_cell, lk_v1, native, patch
+    from stereo_visual_odometry_tpu_torch.ops import lk_cell, lk_v1, lk_v2, native, patch
     from stereo_visual_odometry_tpu_torch.probes import lk_block, patch_timing, timing
     try:
         from stereo_visual_odometry_tpu_torch.ops.cuda_stream import current_stream
@@ -311,8 +331,8 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
-    ops = {"lk_cell": lk_cell, "lk_v1": lk_v1, "lk_block": lk_block_op, "native": native,
-           "make_inputs": lk_block.make_inputs}
+    ops = {"lk_cell": lk_cell, "lk_v1": lk_v1, "lk_block": lk_block_op, "lk_v2": lk_v2,
+           "native": native, "make_inputs": lk_block.make_inputs}
     il, ir, _, cam = bench_sequence(BENCH_FRAMES)
     res = {"root": args.root, "card": smi,
            **measure(ops, timing, patch_timing.host_us, current_stream,

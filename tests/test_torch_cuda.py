@@ -13,8 +13,8 @@ Tolerances: K1 exact (a copy). K2 exact (the kernel's __fmul_rn / __fmaf_rn
 are the plain version's products and exactly emulated fmas). K3-K6:
 ok masks >= 99% equal, flows within 1e-3 px for >= 98% of the points both
 keep and within eps for all (block sums in another order can stop a point
-one iteration earlier or later, which moves it by less than eps); K5 is
-also held to the K3 kernel. K7 exact (a copy), through its C++ binding,
+one iteration earlier or later, which moves it by less than eps); K5 and
+K6 are also held to the K3 and K4 kernels. K7 exact (a copy), through its C++ binding,
 which refuses bad inputs with a ValueError. K8's checksums within 1e-4 of their largest value (sums of ~441
 products in another order). The slices:
 accept flags equal and poses within 1e-3 m / 1e-4, with the same RANSAC
@@ -31,7 +31,7 @@ import torch
 from stereo_visual_odometry_tpu_torch.models.frontend import VOConfig
 from stereo_visual_odometry_tpu_torch.models.system import System
 from stereo_visual_odometry_tpu_torch.ops import (cuda_stream, lk_block, lk_cell, lk_v1, lk_v2,
-                                                  orb, patch, roll)
+                                                  native, orb, patch, roll)
 from stereo_visual_odometry_tpu_torch.ops import pnp as tpnp
 from stereo_visual_odometry_tpu_torch.probes import lk_breakdown
 from stereo_visual_odometry_tpu_torch.probes import roll as probe_roll
@@ -529,6 +529,25 @@ def test_k3_k4_windows_outside_the_staged_region(kernel):
     _assert_level_calls_agree(_with_stats(fn, args, **kw), want, len(args[2]))
 
 
+def test_k6_windows_outside_the_staged_region():
+    """K6 stages K3's region and reloads every iteration; its windows off
+    the region come from device memory. The results match its plain version
+    and the K4 kernel under phase 5's criteria (every point tracked: K6 takes
+    no mask)."""
+    need_cuda()
+    args, pad = _off_region_inputs()
+    kw = dict(eps=0.01, search_radius=20, pad=pad)
+    want = _with_stats(lk_v2.level_track_v2_reference, args, **kw)
+    share = lk_v1.staged_share(args[2], args[3], want[2], *args[0].shape, pad=pad,
+                               margin=lk_block.STAGE_MARGIN)
+    assert (1.0 - share) * len(want[2]["corners"]) > len(args[2])
+    got = _with_stats(lk_v2.level_track_v2, args, **kw)
+    _assert_level_calls_agree(got, want, len(args[2]))
+    _assert_level_calls_agree(got, _with_stats(lk_v1.level_track_v1, args, **kw),
+                              len(args[2]))
+    np.testing.assert_array_equal(got[2]["reloads"].cpu(), got[2]["iters"].cpu())
+
+
 def test_k5_windows_outside_the_staged_region():
     """K5 stages K3's region; its windows off the region come from device
     memory. The results match the plain version and the K3 kernel under
@@ -572,6 +591,46 @@ def test_k5_kernel_matches_the_k3_kernel(radius):
     assert int(got[2]["iters"][~active].abs().sum()) == 0
     flow, ok = lk_block.level_track_block(*args, **kw)
     assert torch.equal(flow, got[0]) and torch.equal(ok, got[1])
+
+
+def _k6_bare(args, kw, active):
+    """K6 through its bare C entry (K4's contract) with ``active``: (flow,
+    ok, stats)."""
+    from stereo_visual_odometry_tpu_torch.probes import lk_timing
+    held = lk_timing.bare_entry(native, cuda_stream.current_stream, "svo_lk_level_v2", args,
+                                dict(kw, active=active), stats=True)()
+    torch.cuda.synchronize()
+    flow, ok, counts = held[-3:]
+    return flow, ok, {"iters": counts[:, 0], "reloads": counts[:, 1]}
+
+
+@pytest.mark.parametrize("radius", [2.5, 6])
+def test_k6_kernel_matches_the_k4_kernel(radius):
+    """K6 and K4 compute one function: on K4's card-test inputs with K4's
+    mask passed through K6's bare C entry (the wrapper, like the JAX kernel,
+    takes none), the same ok masks (>= 99%), flows within 1e-3 px for >= 98%
+    and within eps for all, the same mean iterations and reloads; inactive
+    points keep their guess. Without a mask the wrapper and the bare entry
+    give the same outputs bit for bit."""
+    need_cuda()
+    (prev, nxt, pts, guess, active), pad = _k3_k4_inputs()
+    args = (prev, nxt, pts, guess)
+    kw = dict(win=21, iters=30, eps=0.01, pad=pad, search_radius=radius)
+    got = _k6_bare(args, kw, active)
+    want = _with_stats(lk_v1.level_track_v1, args, active=active, **kw)
+    assert float((got[1] == want[1]).float().mean()) >= 0.99
+    both = got[1] & want[1]
+    assert int(both.sum()) > 0.5 * int(active.sum())
+    d = (got[0] - want[0]).abs().amax(-1)[both]
+    assert float(d.max()) <= 0.01 and float((d > 1e-3).float().mean()) <= 0.02
+    for key in ("iters", "reloads"):
+        assert abs(float(got[2][key][active].float().mean())
+                   - float(want[2][key][active].float().mean())) <= 0.01
+    assert torch.equal(got[0][~active], guess[~active]) and not bool(got[1][~active].any())
+    assert int(got[2]["iters"][~active].abs().sum()) == 0
+    bare = _k6_bare(args, kw, None)
+    flow, ok = lk_v2.level_track_v2(*args, **kw)
+    assert torch.equal(flow, bare[0]) and torch.equal(ok, bare[1])
 
 
 def _k3_k4_inputs(seed=6):
@@ -644,7 +703,7 @@ def _device_work(call) -> list:
 def _level_call_is_one_kernel(kernel, masked, name):
     (prev, nxt, pts, guess, active), pad = _k3_k4_inputs()
     fn = LK_LEVEL[kernel][0]
-    kw = dict(pad=pad, active=active if masked else None)
+    kw = dict(pad=pad, active=active) if masked else dict(pad=pad)
     fn(prev, nxt, pts, guess, **kw)  # the build and the first launch
     torch.cuda.synchronize()
     device_work = _device_work(lambda: fn(prev, nxt, pts, guess, **kw))
@@ -666,6 +725,62 @@ def test_k5_wrapper_call_is_one_kernel(masked):
     the statistics are the kernel's, no other node."""
     need_cuda()
     _level_call_is_one_kernel("block", masked, "lk_block_cell_kernel")
+
+
+def test_k6_wrapper_call_is_one_kernel():
+    """A K6 level call is one CUDA kernel (K5's, with K4's body): its tail
+    and the statistics are the kernel's, no mask is made, no other node."""
+    need_cuda()
+    _level_call_is_one_kernel("v2", False, "lk_block_cell_kernel")
+
+
+@pytest.mark.parametrize("label", list(lk_breakdown.VARIANTS))
+def test_k8_call_is_one_kernel(label):
+    """Each K8 variant is one CUDA kernel, K5's, and no other device work:
+    no guess or mask is made, only the outputs are allocated."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.probes import lk_block as probe_block
+    inputs = probe_block.make_inputs("cuda")
+    lk_breakdown.run_variant(label, inputs)  # the build and the first launch
+    torch.cuda.synchronize()
+    device_work = _device_work(lambda: lk_breakdown.run_variant(label, inputs))
+    assert len(device_work) == 1 and "lk_block_cell_kernel" in device_work[0], device_work
+
+
+def test_k6_k8_in_a_cuda_graph_match_eager():
+    """Captured in a CUDA graph, K6 (with statistics and without) and K8's
+    four variants give the eager outputs bit for bit, also after the inputs
+    change in place between replays."""
+    need_cuda()
+    (prev, nxt, pts, guess, _), pad = _k3_k4_inputs()
+    stats = {}
+
+    def calls():
+        out = [*lk_v2.level_track_v2(prev, nxt, pts, guess, pad=pad, stats=stats),
+               *lk_v2.level_track_v2(prev, nxt, pts, guess, pad=pad, search_radius=2.5)]
+        for mode, rounds in lk_breakdown.VARIANTS.values():
+            out += lk_block.level_track_block_split(prev, nxt, pts, pad, mode, rounds)
+        return out
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    captured_stats = dict(stats)
+    for step in range(2):
+        if step:
+            nxt.copy_(torch.roll(nxt, 1, 1))
+            guess.add_(0.25)
+            pts.add_(0.5)
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, calls(), strict=True):
+            assert torch.equal(got, want)
+        assert all(torch.equal(captured_stats[k], stats[k]) for k in ("iters", "reloads"))
 
 
 COUNTERS = (patch.extract_windows_int, patch.extract_patches,

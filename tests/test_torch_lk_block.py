@@ -1,7 +1,9 @@
 """Port parity: K5 (``lk_block.level_track_block``), K6
 (``lk_v2.level_track_v2``) and K8 (``lk_block.level_track_block_split``)
 against the JAX kernels in ``scripts/``, and the routes and probes of the
-port's block LK modules.
+port's block LK modules: the wrappers' contracts (K5's and K6's finished
+flow and ok, K8's four variants), and the shared memory per CTA the
+wrappers ask for, which is the layout of ``csrc/lk_block.cu``'s kernel.
 
 The JAX side runs in Pallas interpret mode: K5 and K6 through
 ``level_track_pallas_block`` / ``level_track_pallas_v2(..., interpret=True)``
@@ -139,6 +141,100 @@ def test_v2_plain_matches_jax_kernel(level, with_guess):
                                    stats=stats, **kw)
     assert_flows_agree(ft, okt, fj, okj)
     np.testing.assert_array_equal(stats["reloads"].numpy(), stats["iters"].numpy())
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("radius", [1, 6])
+def test_v2_contract_matches_jax_kernel(level, radius, with_stats):
+    """K6's wrapper contract on the CPU route, K4's without a mask: flow =
+    guess + delta, the ``search_radius`` test on the found delta, ``stats``
+    only when asked with reloads = iterations; held to the tail of
+    ``level_track_pallas_v2`` in interpret mode at the same radius. At radius
+    1 the gate drops points that radius 6 keeps."""
+    prev, nxt, pts, guess, _ = level
+    kw = dict(win=21, iters=30, eps=0.01, search_radius=radius, pad=PAD)
+    jax_v2 = load_script("lk_pallas_v2")
+    fj, okj = jax_v2.level_track_pallas_v2(
+        jnp.asarray(prev), jnp.asarray(nxt), jnp.asarray(pts), jnp.asarray(guess),
+        interpret=True, **kw)
+    stats = {} if with_stats else None
+    ft, okt = lk_v2.level_track_v2(torch.from_numpy(prev), torch.from_numpy(nxt),
+                                   torch.from_numpy(pts), torch.from_numpy(guess),
+                                   stats=stats, **kw)
+    assert okt.dtype == torch.bool and ft.dtype == torch.float32
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    kept = okt.numpy()
+    np.testing.assert_allclose(ft.numpy()[kept], np.asarray(fj)[kept], atol=FLOW_ATOL, rtol=0)
+    delta = np.abs(ft.numpy() - guess).max(-1)
+    assert not kept[delta > radius].any()
+    if radius == 1:
+        assert (delta > 1).any() and kept.any()  # the gate drops some points, not all
+    if with_stats:
+        assert stats["iters"].shape == (N,) and stats["iters"].dtype == torch.int32
+        np.testing.assert_array_equal(stats["reloads"].numpy(), stats["iters"].numpy())
+        assert 1 <= stats["iters"].max() <= 30
+
+
+def _slice_floats(win, keeps_template):
+    """One point's slice of csrc/lk_block.cu's kernel, written out: the
+    gradients (2 win^2), K6's template (win^2), the (win+3)^2 buffer, the
+    (win+15)^2 region (margin 7) and the (win+2)^2 field, even."""
+    floats = ((3 if keeps_template else 2) * win * win + (win + 3) ** 2 + (win + 15) ** 2
+              + (win + 2) ** 2)
+    return floats + floats % 2
+
+
+@pytest.mark.parametrize("win", [5, 21, 31, 75])
+def test_smem_helpers_give_the_kernel_layouts(win):
+    """The wrappers' shared memory per CTA is the kernel's layout: K5/K8's
+    slice, and K6's, which also holds T (win^2 more floats), 2 points each;
+    at win 21 both stay below 48 KB, from win 31 both take the opt-in above
+    it, which ``lk_v1.check_launch`` lets through up to the card's 227 KB
+    (win 75 is above it)."""
+    cell, it = lk_block.cell_smem_bytes(win), lk_block.iter_smem_bytes(win)
+    assert cell == 4 * lk_block.CELL_POINTS_PER_CTA * _slice_floats(win, False)
+    assert it == 4 * lk_block.ITER_POINTS_PER_CTA * _slice_floats(win, True)
+    assert lk_block.STAGE_MARGIN == lk_v1.STAGE_MARGIN == 7
+    if win == 21:
+        assert (cell, it) == (26272, 29792)
+    cuda = torch.device("cuda")  # a device type: no card is touched
+    for smem in (cell, it):
+        assert (smem > 48 * 1024) == (win >= 31)
+        if smem <= lk_v1._SMEM_LIMIT:
+            lk_v1.check_launch(cuda, win, smem)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                lk_v1.check_launch(cuda, win, smem)
+    assert (it > lk_v1._SMEM_LIMIT) == (win == 75)
+
+
+@pytest.mark.parametrize("label", list(probe_breakdown.VARIANTS))
+def test_split_wrapper_gives_the_plain_outputs(level, label):
+    """K8's CPU route is its plain version for every variant, bit for bit,
+    with the JAX variant's outputs: ``full`` is K5's plain version from zero
+    guesses with the raw delta and the gate as 0/1; ``tmpl``/``reload`` give
+    the checksums flow = (acc [+ the last round's first dot], acc), ok =
+    acc, and each round's 8 dots."""
+    prev, nxt, pts, _, _ = level
+    mode, rounds = probe_breakdown.VARIANTS[label]
+    args = [torch.from_numpy(a) for a in (prev, nxt, pts)]
+    before = lk_block.level_track_block_split.launches
+    flow, ok, dots = lk_block.level_track_block_split(*args, PAD, mode, rounds)
+    assert lk_block.level_track_block_split.launches == before
+    for g, w in zip((flow, ok, dots),
+                    lk_block.level_track_block_split_reference(*args, PAD, mode, rounds)):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert dots.shape == (N, rounds if mode == "reload" else 0, 8)
+    if mode == "full":
+        f5, ok5 = lk_block.level_track_block_reference(*args, torch.zeros(N, 2), pad=PAD,
+                                                       search_radius=float("inf"))
+        assert torch.equal(flow, f5) and torch.equal(ok, ok5.float())
+        assert set(ok.unique().tolist()) <= {0.0, 1.0}
+    else:
+        assert torch.equal(flow[:, 1], ok)
+        extra = dots[:, -1, 0] if mode == "reload" else torch.zeros(N)
+        assert torch.equal(flow[:, 0], ok + extra)
 
 
 def rel_err(got, want) -> float:
