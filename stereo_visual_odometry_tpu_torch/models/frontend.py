@@ -20,6 +20,14 @@ inside the step:
   octave, the same gates. State: ``feat_l``/``feat_r`` (feature dicts of
   the previous pair), ``T_wc``, ``T_21_prev``, ``status``, ``n_detected``.
 
+With ``persistent_tracks`` both keep track slots across frames, the
+observations the BA backend (``models/backend.py``) consumes: LK refills
+the slots its tracks lost with fresh detections away from live tracks; ORB
+hands each previous track's id to the current feature its temporal match
+landed on. The state gains ``track_id``, ``track_age`` (int32, -1 / 0 on
+an empty slot) and ``next_id`` (int32); a frame's outputs gain
+``TRACK_KEEP``, with the current pair's triangulation of every slot.
+
 RANSAC draws come from the frontend's ``torch.Generator`` (JAX carries a
 PRNG key in the state instead); ``step_fn`` also takes the draws ``u``
 directly. ``make_buffer_step`` gives the step in buffer form, the form a
@@ -27,9 +35,6 @@ CUDA graph captures (``models/step_graph.py``): it reads the state, the pair
 and ``u`` from tensors it does not own and writes the new state back into
 the state's tensors. The factories build on ``device="cuda"`` unless told otherwise,
 raise without a GPU, and raise for a rig on another device.
-
-Branches not ported yet (persistent tracks, the BA backend) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -118,31 +123,90 @@ class VOConfig:
 INITING, TRACKING_GOOD, LOST = 0, 1, 2
 
 
-# Branches of the JAX frontend that later slices port (ROADMAP.md, Queue 1).
-_SLICE_BA = "slice 3 (BA backend and persistent tracks)"
+# Sentinel for the persistent-track id scatters (larger than any real id).
+_ID_BIG = 1 << 30
 
 
-def check_supported(cfg: VOConfig, backend_cfg=None) -> None:
-    """Raise NotImplementedError for a branch the port does not have yet."""
+def check_supported(cfg: VOConfig) -> None:
+    """Raise ValueError for a mode the JAX package does not have."""
     if cfg.mode not in ("lk", "orb"):
         raise ValueError(f"unknown mode {cfg.mode!r} (expected 'lk' or 'orb')")
-    todo = (
-        (f"persistent_tracks=True (mode={cfg.mode!r})", cfg.persistent_tracks,
-         _SLICE_BA),
-        ("the BA backend", backend_cfg is not None, _SLICE_BA),
-    )
-    for name, hit, item in todo:
-        if hit:
-            raise NotImplementedError(
-                f"{name} is not ported yet: ROADMAP.md Queue 1, {item}")
 
 
 def _detect_left(cfg: VOConfig, img_l: torch.Tensor):
-    """Dense FAST + spatially-uniform top-K + subpixel on the left image."""
+    """Dense FAST + spatially-uniform top-K + subpixel on the left image:
+    (xy, score, valid)."""
     score = fast.detect(img_l, cfg.fast_threshold)
-    xy, _, valid = select.grid_top_k(score, cfg.max_features, cell=cfg.cell,
-                                     k_per_cell=cfg.k_per_cell)
-    return select.subpixel_refine(score, xy, valid), valid
+    xy, sc, valid = select.grid_top_k(score, cfg.max_features, cell=cfg.cell,
+                                      k_per_cell=cfg.k_per_cell)
+    return select.subpixel_refine(score, xy, valid), sc, valid
+
+
+def _new_tracks(valid: torch.Tensor) -> dict:
+    """Persistent-track state for a fresh detection: compact ids
+    0..n_valid-1 (valid slots need not be a prefix, so slot-index ids would
+    exceed ``next_id`` and collide with later fresh ids), age 0."""
+    ids = torch.where(valid, torch.cumsum(valid, 0) - 1, -1)
+    return {"track_id": ids.to(torch.int32),
+            "track_age": torch.zeros(valid.shape, dtype=torch.int32, device=valid.device),
+            "next_id": torch.sum(valid).to(torch.int32)}
+
+
+def _fresh_ids(next_id: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``next_id``, ``next_id`` + 1, ... in the order of ``mask``'s set
+    entries (int32; the other entries hold junk)."""
+    return (next_id + torch.cumsum(mask, 0) - 1).to(torch.int32)
+
+
+def _depth_ok(cfg: VOConfig, pts3d: torch.Tensor) -> torch.Tensor:
+    return (pts3d[:, 2] > cfg.z_min) & (pts3d[:, 2] < cfg.z_max)
+
+
+def _refill_slots(cfg: VOConfig, state: dict, quad: dict, xy, score, det_valid, tri):
+    """LK persistent slots (JAX ``models/frontend.py:338-386``): surviving
+    tracks keep their slot, id and age + 1; the slots they lost are refilled
+    with the best fresh detections at least ``replenish_min_dist`` from a
+    live track, under new ids. Both orders are stable sorts, as
+    ``jnp.argsort``: FAST scores tie often. Returns (state, metric)
+    updates."""
+    k = cfg.max_features
+    tracked_xy, tracked_ok = quad["t2l"], quad["valid"]
+    cand_keep = select.mask_min_distance(xy, det_valid, tracked_xy, tracked_ok,
+                                         cfg.replenish_min_dist)
+    # Invalid slots first, best candidates first.
+    slot_order = torch.sort(tracked_ok.to(torch.int32), stable=True).indices
+    n_invalid = k - torch.sum(tracked_ok)
+    cand_order = torch.sort(torch.where(cand_keep, -score, torch.inf), stable=True).indices
+    write_mask = ((torch.arange(k, device=xy.device) < n_invalid)
+                  & cand_keep[cand_order])
+
+    def scatter(dst, src_sorted):
+        """Write ``src_sorted`` into the slots ``slot_order`` lists where
+        ``write_mask`` is set (a permutation: one writer per slot)."""
+        fill = write_mask.reshape((-1,) + (1,) * (dst.ndim - 1))
+        return dst.index_copy(0, slot_order, torch.where(fill, src_sorted, dst[slot_order]))
+
+    new_kp = scatter(tracked_xy, xy[cand_order])
+    new_valid = scatter(tracked_ok, write_mask)
+    ids = torch.where(tracked_ok, state["track_id"], -1)
+    new_ids = scatter(ids, _fresh_ids(state["next_id"], write_mask))
+    ages = torch.where(tracked_ok, state["track_age"] + 1, 0)
+    new_ages = scatter(ages, torch.zeros_like(ages))
+
+    # The current pair's depth of the surviving tracks (landmark init).
+    pts3d_cur, tri_cur_ok = tri(quad["t2l"], quad["t2r"])
+    stereo_ok = tracked_ok & tri_cur_ok & _depth_ok(cfg, pts3d_cur)
+    state_upd = {"kp": new_kp, "kp_valid": new_valid, "track_id": new_ids,
+                 "track_age": new_ages,
+                 "next_id": (state["next_id"] + torch.sum(write_mask)).to(torch.int32)}
+    # Right-image position of surviving tracks; refilled slots have
+    # stereo_ok False.
+    metric_upd = {"track_id": new_ids, "track_xy": new_kp, "track_valid": new_valid,
+                  "track_age": new_ages, "pts3d_cur": pts3d_cur,
+                  "pts3d_cur_valid": stereo_ok, "track_xy_r": quad["t2r"],
+                  "track_stereo_valid": stereo_ok,
+                  "track_id_prev_slots": state["track_id"]}
+    return state_upd, metric_upd
 
 
 def _accept(cfg: VOConfig, res: dict, n_tracked: torch.Tensor,
@@ -165,22 +229,24 @@ def _make_tri(rig: StereoRig):
     return lambda a, b: triangulate.triangulate_dlt(rig.P_left, rig.P_right, a, b)
 
 
-def _device(device, rig: StereoRig) -> torch.device:
-    """The frontend's device: the card unless the caller asks for another;
-    raises without a GPU, and for a rig whose tensors lie elsewhere."""
+def resolve_device(device, tensors, what: str = "frontend",
+                   inputs: str = "rig") -> torch.device:
+    """The device of a ``what`` (a frontend, the BA backend): the card
+    unless the caller asks for another; raises without a GPU, and for
+    ``inputs`` (the rig, the camera) whose ``tensors`` lie elsewhere."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                f"a frontend on device={str(device)!r} needs an NVIDIA GPU and "
+                f"a {what} on device={str(device)!r} needs an NVIDIA GPU and "
                 "torch.cuda.is_available() is False; pass device='cpu' to run "
                 "on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    rig_devs = {t.device for t in (rig.T_rl, rig.left.fx, rig.right.fx)}
-    if rig_devs != {dev}:
-        raise ValueError(f"the rig's tensors are on {sorted(map(str, rig_devs))}, the "
-                         f"frontend on {dev}: build the rig on the frontend's device")
+    devs = {t.device for t in tensors}
+    if devs != {dev}:
+        raise ValueError(f"the {inputs}'s tensors are on {sorted(map(str, devs))}, the "
+                         f"{what} on {dev}: build the {inputs} on the {what}'s device")
     return dev
 
 
@@ -193,7 +259,7 @@ def make_lk_frontend(cfg: VOConfig, rig: StereoRig, device="cuda",
     optionally injects the (num_hypotheses, 6) RANSAC draws.
     """
     check_supported(cfg)
-    device = _device(device, rig)
+    device = resolve_device(device, (rig.T_rl, rig.left.fx, rig.right.fx))
     tri = _make_tri(rig)
     eye4 = lambda: torch.eye(4, dtype=torch.float32, device=device)
     sweep_level = min(2, cfg.pyr_levels - 1)
@@ -211,7 +277,7 @@ def make_lk_frontend(cfg: VOConfig, rig: StereoRig, device="cuda",
         """StereoInit_f2f (``tracking.cpp:78-92``): detect on frame 0."""
         img_l, img_r = _as_img(img_l), _as_img(img_r)
         pl, pr = _build_pyrs(img_l, img_r)
-        xy, valid = _detect_left(cfg, img_l)
+        xy, _, valid = _detect_left(cfg, img_l)
         n_det = torch.sum(valid)
         status = torch.where(n_det >= cfg.min_features_detect,
                              TRACKING_GOOD, INITING).to(torch.int32)
@@ -220,6 +286,8 @@ def make_lk_frontend(cfg: VOConfig, rig: StereoRig, device="cuda",
             "T_wc": eye4(), "T_21_prev": eye4(),
             "status": status, "n_detected": n_det,
         }
+        if cfg.persistent_tracks:
+            state.update(_new_tracks(valid))
         if cfg.lk_predictive and cfg.lk_sweep:
             # The next step's t1-pair disparity map.
             state["dmap"] = stereo_sweep.disparity_sweep(
@@ -259,8 +327,7 @@ def make_lk_frontend(cfg: VOConfig, rig: StereoRig, device="cuda",
 
         # Triangulate the t-1 stereo pair (tracking.cpp:292-294).
         pts3d, tri_ok = tri(quad["t1l"], quad["t1r"])
-        depth_ok = (pts3d[:, 2] > cfg.z_min) & (pts3d[:, 2] < cfg.z_max)
-        corr_valid = quad["valid"] & tri_ok & depth_ok
+        corr_valid = quad["valid"] & tri_ok & _depth_ok(cfg, pts3d)
         n_tracked = torch.sum(corr_valid)
 
         # RANSAC-PnP of the t-1 cloud vs current-left pixels (tracking.cpp:299).
@@ -276,7 +343,7 @@ def make_lk_frontend(cfg: VOConfig, rig: StereoRig, device="cuda",
         T_wc = torch.where(accept, state["T_wc"] @ se3.se3_inv(T_21), state["T_wc"])
 
         # Fresh detection on the current left image (tracking.cpp:260).
-        xy, det_valid = _detect_left(cfg, img_l)
+        xy, score, det_valid = _detect_left(cfg, img_l)
         n_det = torch.sum(det_valid)
         status = torch.where(n_det >= cfg.min_features_detect,
                              TRACKING_GOOD, LOST).to(torch.int32)
@@ -303,6 +370,11 @@ def make_lk_frontend(cfg: VOConfig, rig: StereoRig, device="cuda",
             "tracked_prev": quad["t1l"], "tracked_cur": quad["t2l"],
             "tracked_valid": corr_valid,
         }
+        if cfg.persistent_tracks:
+            state_upd, metric_upd = _refill_slots(cfg, state, quad, xy, score,
+                                                  det_valid, tri)
+            new_state.update(state_upd)
+            metrics.update(metric_upd)
         return new_state, metrics
 
     return init_fn, step_fn
@@ -320,7 +392,7 @@ def make_orb_frontend(cfg: VOConfig, rig: StereoRig, device="cuda",
     ``make_lk_frontend``.
     """
     check_supported(cfg)
-    device = _device(device, rig)
+    device = resolve_device(device, (rig.T_rl, rig.left.fx, rig.right.fx))
     tri = _make_tri(rig)
     eye4 = lambda: torch.eye(4, dtype=torch.float32, device=device)
     orb_kw = dict(n_features=cfg.max_features, levels=cfg.orb_levels,
@@ -346,8 +418,11 @@ def make_orb_frontend(cfg: VOConfig, rig: StereoRig, device="cuda",
         n_det = torch.sum(fl["valid"])
         status = torch.where(n_det >= cfg.min_features_detect,
                              TRACKING_GOOD, INITING).to(torch.int32)
-        return {"feat_l": fl, "feat_r": fr, "T_wc": eye4(), "T_21_prev": eye4(),
-                "status": status, "n_detected": n_det}
+        state = {"feat_l": fl, "feat_r": fr, "T_wc": eye4(), "T_21_prev": eye4(),
+                 "status": status, "n_detected": n_det}
+        if cfg.persistent_tracks:
+            state.update(_new_tracks(fl["valid"]))
+        return state
 
     def step_fn(state, img_l, img_r, u: torch.Tensor | None = None):
         fl_cur, fr_cur = _detect(img_l, img_r)
@@ -360,8 +435,7 @@ def make_orb_frontend(cfg: VOConfig, rig: StereoRig, device="cuda",
         xy_r = feat_r["xy"][assoc["idx_r"].long()]
         xy_cur = fl_cur["xy"][assoc["idx_t2l"].long()]
         pts3d, tri_ok = tri(xy_l, xy_r)
-        depth_ok = (pts3d[:, 2] > cfg.z_min) & (pts3d[:, 2] < cfg.z_max)
-        corr_valid = assoc["valid"] & tri_ok & depth_ok
+        corr_valid = assoc["valid"] & tri_ok & _depth_ok(cfg, pts3d)
         n_tracked = torch.sum(corr_valid)
 
         # Per-point confidence by detection octave (ORB-SLAM invSigma2): a
@@ -391,7 +465,46 @@ def make_orb_frontend(cfg: VOConfig, rig: StereoRig, device="cuda",
             "tracked_prev": xy_l, "tracked_cur": xy_cur,
             "tracked_valid": corr_valid,
         }
+        if cfg.persistent_tracks:
+            state_upd, metric_upd = _inherit_ids(state, assoc, corr_valid, fl_cur, fr_cur)
+            new_state.update(state_upd)
+            metrics.update(metric_upd)
         return new_state, metrics
+
+    def _inherit_ids(state, assoc, surv, fl_cur, fr_cur):
+        """ORB persistent tracks (JAX ``models/frontend.py:504-548``): the
+        current feature j inherits the id of the previous slot i whose
+        temporal match landed on it (``idx_t2l[i] == j``) and survived the
+        association; on a collision the oldest track (smallest id) wins.
+        The rest get fresh ids. Returns (state, metric) updates."""
+        track_id, track_age = state["track_id"], state["track_age"]
+        prev_id = torch.where(surv & (track_id >= 0), track_id, _ID_BIG)
+        cand = torch.full_like(track_id, _ID_BIG).scatter_reduce(
+            0, assoc["idx_t2l"].long(), prev_id, reduce="amin", include_self=True)
+        inherited = (cand < _ID_BIG) & fl_cur["valid"]
+        # The winning parent's age: ids are unique per frame, so a (k, k)
+        # one-hot lookup finds its slot exactly.
+        eq = (track_id[None, :] == cand[:, None]) & surv[None, :]
+        age_prev = torch.amax(torch.where(eq, track_age[None, :], -1), dim=1)
+        fresh = fl_cur["valid"] & ~inherited
+        new_ids = torch.where(inherited, cand,
+                              torch.where(fresh, _fresh_ids(state["next_id"], fresh), -1))
+        new_ages = torch.where(inherited, age_prev + 1, 0).to(torch.int32)
+
+        # The current pair's stereo association -> each slot's depth
+        # (landmark init; LK gets it from its t2l/t2r legs).
+        cur_st = match.stereo_match(fl_cur, fr_cur, **match_kw)
+        xy_r_cur = fr_cur["xy"][cur_st["idx_r"].long()]
+        pts3d_cur, tri_cur_ok = tri(fl_cur["xy"], xy_r_cur)
+        stereo_ok = cur_st["valid"] & tri_cur_ok & _depth_ok(cfg, pts3d_cur)
+        state_upd = {"track_id": new_ids, "track_age": new_ages,
+                     "next_id": (state["next_id"] + torch.sum(fresh)).to(torch.int32)}
+        metric_upd = {"track_id": new_ids, "track_xy": fl_cur["xy"],
+                      "track_valid": fl_cur["valid"], "track_age": new_ages,
+                      "pts3d_cur": pts3d_cur, "pts3d_cur_valid": stereo_ok,
+                      "track_xy_r": xy_r_cur, "track_stereo_valid": stereo_ok,
+                      "track_id_prev_slots": track_id}
+        return state_upd, metric_upd
 
     return init_fn, step_fn
 
@@ -408,11 +521,17 @@ CHUNK_KEEP = ("T_21", "accept", "n_tracked", "n_inliers", "inlier_ratio",
               "t_norm", "n_detected")
 # What the host takes from a frame: the chunk metrics, the pose and the status.
 FRAME_KEEP = CHUNK_KEEP + ("T_wc", "status")
+# With persistent tracks also the track slots: what the BA backend consumes
+# (JAX ``models/system.py:110-117``) and their ages.
+TRACK_KEEP = ("track_id", "track_xy", "track_valid", "track_age", "pts3d_cur",
+              "pts3d_cur_valid", "track_xy_r", "track_stereo_valid")
 
 
 def frame_outputs(state: dict, metrics: dict) -> dict:
-    """The ``FRAME_KEEP`` tensors of one step's (new state, metrics)."""
-    return {k: metrics[k] if k in metrics else state[k] for k in FRAME_KEEP}
+    """The ``FRAME_KEEP`` tensors of one step's (new state, metrics), and
+    ``TRACK_KEEP``'s with persistent tracks."""
+    keep = FRAME_KEEP + (TRACK_KEEP if "track_id" in metrics else ())
+    return {k: metrics[k] if k in metrics else state[k] for k in keep}
 
 
 def write_back(state: dict, new_state: dict) -> None:

@@ -10,8 +10,13 @@ few feature-starved frames, preserving the pose chain.
 the CPU with ``device="cpu"``; without a GPU, the default raises. The
 frontend is chosen by ``VOConfig.mode`` (LK or ORB); its state is opaque
 here. RANSAC draws come from a ``torch.Generator`` on the device seeded from
-``RunConfig.seed``. The overlay dump and the BA backend are later slices and
-raise.
+``RunConfig.seed``. The overlay dump is a later slice and raises.
+
+``backend_cfg`` adds the sliding-window BA backend (``models/backend.py``,
+JAX config 3), which needs ``persistent_tracks``: ``step`` hands it the
+frame's track slots, makes keyframes, solves on the ``System``'s device
+and applies the latest keyframe's correction to the live pose, which is
+also the pose ``step`` records. ``run_chunked`` is frontend-only.
 
 On cuda, ``step`` and ``run_chunked`` replay the frontend step from one CUDA
 graph per ``System`` (``models/step_graph.py``, the counterpart of the JAX
@@ -35,6 +40,7 @@ import torch
 
 from . import frontend as frontend_mod
 from . import step_graph
+from .backend import SlidingWindowBA
 from ..ops import pnp
 from ..utils import trajectory as traj_mod
 from ..utils.config import RunConfig, rig_from_config
@@ -50,8 +56,11 @@ class System:
                  graph: bool = True):
         """``graph``: on cuda, replay the step from a CUDA graph (the
         default); False runs it eagerly (the A/B switch). The CPU runs
-        eagerly either way."""
-        frontend_mod.check_supported(config.vo, backend_cfg)
+        eagerly either way. ``backend_cfg``: a ``backend.BackendConfig``
+        for the BA backend, or None."""
+        frontend_mod.check_supported(config.vo)
+        if backend_cfg is not None and not config.vo.persistent_tracks:
+            raise ValueError("the BA backend needs VOConfig(persistent_tracks=True)")
         if config.overlay_dir:
             raise NotImplementedError(
                 "overlay_dir is not ported yet: ROADMAP.md Queue 1, slice 5 "
@@ -78,6 +87,9 @@ class System:
         self.metrics: list[dict] = []
         self.frame_times: list[float] = []
         self.frame_idx = 0
+        self.backend = (None if backend_cfg is None else SlidingWindowBA(
+            self.rig.left, backend_cfg, T_rl=self.rig.T_rl.cpu().numpy(),
+            device=self.device))
 
     # ------------------------------------------------------------------ #
 
@@ -139,6 +151,8 @@ class System:
                     self._reinit(img_l, img_r)
             else:
                 self.lost_count = 0
+            if self.backend is not None:
+                pose = self._refine(m, pose)
         dt = time.perf_counter() - t0
         self.frame_times.append(dt)
         self.poses.append(pose)
@@ -148,6 +162,29 @@ class System:
         return m
 
     step_online = step
+
+    def _refine(self, m: dict, T_wc: np.ndarray) -> np.ndarray:
+        """The backend's part of a tracked frame (JAX ``models/system.py:
+        107-124``): tick, maybe a keyframe and a window solve. A solve's
+        correction of the latest keyframe goes into the live pose, copied
+        into the state's tensor (under the graph the graph's buffer, which
+        the next replay reads); returns the pose to record."""
+        be = self.backend
+        be.tick()
+        if not be.should_add_keyframe(self.frame_idx, int(m["n_tracked"])):
+            return T_wc
+        be.add_keyframe(self.frame_idx, T_wc, m["track_id"], m["track_xy"],
+                        m["track_valid"], m["pts3d_cur"], m["pts3d_cur_valid"],
+                        track_xy_r=m["track_xy_r"],
+                        track_stereo_valid=m["track_stereo_valid"],
+                        n_tracked=int(m["n_tracked"]))
+        res = be.optimize()
+        if res is None:
+            return T_wc
+        corrected = (res["correction"] @ T_wc).astype(np.float32)
+        self.state["T_wc"].copy_(torch.from_numpy(corrected))
+        m["ba"] = res
+        return corrected.astype(np.float64)
 
     # ------------------------------------------------------------------ #
 
@@ -179,8 +216,14 @@ class System:
         wall clock split evenly across its frames), and LOST->reinit runs at
         chunk granularity, as in the JAX ``run_chunked``. A chunk is uploaded
         once; each frame's outputs are copied into the chunk's (T, ...)
-        tensors on the device, which reach the host in one copy.
+        tensors on the device, which reach the host in one copy. With
+        persistent tracks each frame's dict also holds its ``TRACK_KEEP``
+        arrays. Refuses a ``System`` with a backend, as the JAX one does:
+        the backend needs the host after every frame (use ``run``).
         """
+        if self.backend is not None:
+            raise ValueError("run_chunked is frontend-only: a System with a BA "
+                             "backend runs frame by frame (System.run)")
         buf_l: list[np.ndarray] = []
         buf_r: list[np.ndarray] = []
 
@@ -223,6 +266,7 @@ class System:
                     "t_norm": float(m["t_norm"][t]),
                     "T_21": m["T_21"][t].astype(np.float64),
                     "time_s": per_frame,
+                    **{k: m[k][t] for k in frontend_mod.TRACK_KEEP if k in m},
                 })
                 self.frame_times.append(per_frame)
                 self.lost_count = (self.lost_count + 1

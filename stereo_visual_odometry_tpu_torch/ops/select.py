@@ -1,10 +1,11 @@
 """Fixed-shape keypoint selection from dense score maps.
 
-Port of ``grid_top_k``, ``subpixel_refine`` and ``dedup_by_bin`` from
-``stereo_visual_odometry_tpu/ops/select.py``. Ties break the JAX way: the
-per-cell rounds keep the first maximal index (``torch.argmax`` does), and
-the global top-K is a stable descending sort, so equal scores keep their
-flat order as ``lax.top_k`` does (``torch.topk`` promises no order).
+Port of ``grid_top_k``, ``subpixel_refine``, ``dedup_by_bin`` and
+``mask_min_distance`` from ``stereo_visual_odometry_tpu/ops/select.py``.
+Ties break the JAX way: the per-cell rounds keep the first maximal index
+(``torch.argmax`` does), and the global top-K is a stable descending sort,
+so equal scores keep their flat order as ``lax.top_k`` does
+(``torch.topk`` promises no order).
 """
 from __future__ import annotations
 
@@ -104,3 +105,14 @@ def dedup_by_bin(xy: torch.Tensor, score: torch.Tensor, valid: torch.Tensor,
         champ = champ.scatter_reduce(0, bid, rank, reduce="amax")
         keep = keep & (rank == champ[bid])
     return keep
+
+
+def mask_min_distance(xy: torch.Tensor, valid: torch.Tensor, existing_xy: torch.Tensor,
+                      existing_valid: torch.Tensor, min_dist: float) -> torch.Tensor:
+    """Invalidate candidates within ``min_dist`` px of any valid existing
+    keypoint (the persistent-track refill keeps new detections off live
+    tracks). O(K*M) pairwise, as in JAX."""
+    d2 = torch.sum((xy[:, None, :] - existing_xy[None, :, :]) ** 2, dim=-1)
+    d2 = torch.where(existing_valid[None, :], d2, torch.inf)
+    too_close = torch.any(d2 < min_dist * min_dist, dim=1)
+    return valid & ~too_close

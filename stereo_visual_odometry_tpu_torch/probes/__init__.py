@@ -2,6 +2,8 @@
 each runnable with ``python -m stereo_visual_odometry_tpu_torch.probes.<name>``
 on the card (``--device cpu`` runs the plain versions at a small size).
 
+  ba_leg        the JAX bench's BA leg through System, over RANSAC seeds or
+                given draws
   lk_block      K5/K6 against K3/K4: parity and time per level call
   lk_breakdown  K8: an LK level call split into template, reloads, iterations
   roll          K7: the dynamic-roll envelope

@@ -1,15 +1,18 @@
-"""Carry a rig and a frontend state from numpy into the port.
+"""Carry a rig, a frontend state and a BA backend's state from numpy into
+the port.
 
 The system has no learned weights; what moves between the two packages is
-the stereo rig and the frontend state (LK or ORB). Both come in as numpy
-arrays (a caller holding JAX arrays converts them with ``np.asarray``), so
-this module never imports ``jax``.
+the stereo rig, the frontend state (LK or ORB, with its persistent tracks)
+and the sliding-window backend's host state. All come in as numpy arrays (a
+caller holding JAX arrays converts them with ``np.asarray``), so this
+module never imports ``jax``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..models.backend import BackendConfig, SlidingWindowBA
 from ..ops.camera import Pinhole, StereoRig
 
 # ORB feature dict entries -> the port's dtype. Descriptor words are uint32
@@ -39,7 +42,8 @@ def state_from_jax(state_np: dict, device=None) -> dict:
     state dict. The JAX PRNG ``key`` is not carried: the port draws from a
     torch.Generator. An LK state carries its prior as the JAX one holds it:
     ``dmap`` (sweep), ``disp_grid`` (disparity grid) or neither
-    (``lk_predictive=False``)."""
+    (``lk_predictive=False``); a state with persistent tracks its
+    ``track_id``, ``track_age`` and ``next_id`` (int32)."""
     to_f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
     state = {
         "status": torch.tensor(int(state_np["status"]), dtype=torch.int32,
@@ -60,4 +64,32 @@ def state_from_jax(state_np: dict, device=None) -> dict:
         state.update({k: to_f32(state_np[k]) for k in ("dmap", "disp_grid")
                       if k in state_np})
     state.update({k: to_f32(state_np[k]) for k in ("T_wc", "T_21_prev")})
+    state.update({k: torch.tensor(np.asarray(state_np[k]), dtype=torch.int32, device=device)
+                  for k in ("track_id", "track_age", "next_id") if k in state_np})
     return state
+
+
+# The host state of a ``SlidingWindowBA``, in both packages.
+BACKEND_STATE = ("kf_poses", "kf_obs", "landmarks", "frame_of_kf", "prior",
+                 "_frames_since_kf", "_last_kf_n_tracked")
+
+
+def backend_from_jax(state_np: dict, cam: Pinhole, cfg: BackendConfig,
+                     T_rl) -> SlidingWindowBA:
+    """A JAX ``SlidingWindowBA``'s host state (``BACKEND_STATE`` of its
+    attributes, numpy) -> the port's backend on ``cam``'s device, holding
+    copies of it: keyframe poses (float64), per-keyframe observations
+    track_id -> (uv, uv_r or None), landmarks, keyframe frames, the prior
+    (or None) and the keyframe gate's counters."""
+    be = SlidingWindowBA(cam, cfg, T_rl=T_rl, device=cam.fx.device)
+    copy = lambda a: None if a is None else np.array(a)
+    be.kf_poses = [np.array(T, np.float64) for T in state_np["kf_poses"]]
+    be.kf_obs = [{int(t): (copy(uv), copy(uv_r)) for t, (uv, uv_r) in o.items()}
+                 for o in state_np["kf_obs"]]
+    be.landmarks = {int(t): np.array(x) for t, x in state_np["landmarks"].items()}
+    be.frame_of_kf = [int(f) for f in state_np["frame_of_kf"]]
+    prior = state_np["prior"]
+    be.prior = None if prior is None else {k: np.array(v) for k, v in prior.items()}
+    be._frames_since_kf = int(state_np["_frames_since_kf"])
+    be._last_kf_n_tracked = int(state_np["_last_kf_n_tracked"])
+    return be

@@ -854,6 +854,10 @@ GRAPH_PATHS = {  # VOConfig, and the kernels one step launches
     "no_sweep": (dict(SMALL, lk_sweep=False), {"extract_windows_int": 45}),
     "orb": (dict(SMALL, mode="orb", height=128, width=320, orb_levels=4),
             {"extract_windows_int": 8, "extract_patches": 8}),
+    "lk_persistent": (dict(SMALL, persistent_tracks=True), {"extract_windows_int": 27}),
+    "orb_persistent": (dict(SMALL, mode="orb", height=128, width=320, orb_levels=4,
+                            persistent_tracks=True),
+                       {"extract_windows_int": 8, "extract_patches": 8}),
 }
 KERNEL_NAMES = {"extract_windows_int": "extract_windows_int_kernel",  # counter -> kernel
                 "extract_patches": "extract_patches_kernel",
@@ -885,6 +889,9 @@ def _assert_runs_equal(sys_g, traj_g, sys_e, traj_e):
             assert np.array_equal(mg[k], me[k]), k
     assert sys_g.status == sys_e.status
     assert torch.equal(sys_g.generator.get_state(), sys_e.generator.get_state())
+    for k in ("track_id", "track_age", "next_id"):  # persistent tracks
+        if k in sys_e.state:
+            assert torch.equal(sys_g.state[k], sys_e.state[k]), k
 
 
 def test_disparity_grid_is_deterministic_on_cuda():
@@ -993,3 +1000,136 @@ def test_graph_rejects_another_shape_or_dtype():
     with pytest.raises(ValueError, match="pair differs"):
         sys_.step(il, ir[:, :128])
     assert sys_.step(*frames[2])["accept"]
+
+
+# ---------------------------------------------------------------------- #
+# The BA backend (slice 3) on the card.
+
+def _ba_problem(n_kf=6, n_lm=120, seed=7):
+    """A window like ``tests/test_ba.py``'s ``make_ba_problem`` (forward
+    motion, landmarks 8-40 m ahead, 0.3 px noise, 10% of the observations
+    dropped, every second one also seen by a right camera 0.12 m away),
+    with perturbed initial poses and landmarks; numpy, no JAX."""
+    from stereo_visual_odometry_tpu_torch.ops import se3
+    rng = np.random.default_rng(seed)
+    poses = np.stack([np.eye(4) for _ in range(n_kf)]).astype(np.float32)
+    poses[:, :3, 3] = np.arange(n_kf)[:, None] * np.float32([0.02, -0.01, -0.8])
+    pts = np.stack([rng.uniform(-8, 8, n_lm), rng.uniform(-4, 4, n_lm),
+                    rng.uniform(8, 40, n_lm)], -1).astype(np.float32)
+    T_rl = np.eye(4, dtype=np.float32)
+    T_rl[0, 3] = -0.12
+    kf, lm, uv, right = [], [], [], []
+    for k in range(n_kf):
+        for r, T in ((False, poses[k]), (True, T_rl @ poses[k])):
+            pc = pts @ T[:3, :3].T + T[:3, 3]
+            px = np.stack([500 * pc[:, 0] / pc[:, 2] + 320, 500 * pc[:, 1] / pc[:, 2] + 240], -1)
+            vis = (px[:, 0] > 0) & (px[:, 0] < 640) & (px[:, 1] > 0) & (px[:, 1] < 480)
+            for l in np.nonzero(vis)[0]:
+                if r and l % 2:
+                    continue
+                kf.append(k), lm.append(l), right.append(r)
+                uv.append(px[l] + rng.normal(size=2) * 0.3)
+    keep = rng.random(len(kf)) > 0.1
+    p0 = poses.copy()
+    p0[1:] = (se3.se3_exp(torch.from_numpy(rng.normal(size=(n_kf - 1, 6)).astype(np.float32)
+                                           * 0.02)) @ torch.from_numpy(poses[1:])).numpy()
+    x0 = pts + rng.normal(size=pts.shape).astype(np.float32) * 0.2
+    obs = dict(obs_kf=np.int32(kf)[keep], obs_lm=np.int32(lm)[keep],
+               obs_uv=np.float32(uv)[keep], obs_w=np.ones(int(keep.sum()), np.float32),
+               obs_right=np.bool_(right)[keep])
+    return p0, x0, obs, T_rl
+
+
+def _ba_call(device, prior=False):
+    """``bundle_adjust`` and its arguments on ``device``. With ``prior``, as
+    a window slide makes it: keyframe 0 and the first half of the landmarks
+    are marginalized (``marg.build_prior`` over their observations), and
+    the solve runs on keyframes 1.. and the other landmarks with the prior."""
+    from stereo_visual_odometry_tpu_torch.models import ba, marg
+    from stereo_visual_odometry_tpu_torch.ops.camera import Pinhole
+    p0, x0, obs, T_rl = _ba_problem()
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(device)
+    cam = Pinhole.create(500.0, 500.0, 320.0, 240.0, device=device)
+    table = lambda keep: {k: t(v[keep]) for k, v in obs.items()}
+    args = dict(cam=cam, poses=t(p0), points=t(x0), T_rl=t(T_rl))
+    if prior:
+        dead = obs["obs_lm"] < len(x0) // 2
+        built = marg.build_prior(huber_px=2.0, **args, **table(dead))
+        args["prior"] = {k: v[:-1, :-1] if k == "H" else v[:-1] for k, v in built.items()}
+        live = ~dead & (obs["obs_kf"] >= 1)
+        obs = dict(obs, obs_kf=obs["obs_kf"] - 1)
+        args.update(poses=t(p0[1:]), **table(live))
+    else:
+        args.update(table(np.ones(len(obs["obs_kf"]), bool)))
+    return ba.bundle_adjust, dict(args, n_iters=8, n_fixed=1, prune_px=8.0)
+
+
+@pytest.mark.parametrize("prior", [False, True], ids=["plain", "prior"])
+def test_bundle_adjust_on_cuda_matches_cpu(prior):
+    """The whole GNC + prune schedule (with a marginalization prior) on the
+    card against the port on the CPU: the same observations pruned, costs
+    within 1e-4 relative, poses within 5e-3 and landmarks within 3e-3
+    relative. On the card ``index_add_`` sums with atomics, in another
+    order; the fixed-iteration schedule ends on a flat cost surface, where
+    the order of the sums alone moves the poses: over 10 reorderings of the
+    observation table on the CPU, up to 9.3e-4 (plain) and 2.4e-3 (prior)
+    in the poses, 1.3e-3 relative in the landmarks and 4e-6 relative in
+    the final cost. The bounds are about twice those."""
+    need_cuda()
+    fn, kw = _ba_call("cpu", prior)
+    want = fn(**kw)
+    fn, kw = _ba_call("cuda", prior)
+    got = {k: v.cpu() for k, v in fn(**kw).items()}
+    np.testing.assert_allclose(got["poses"].numpy(), want["poses"].numpy(), atol=5e-3, rtol=0)
+    np.testing.assert_allclose(got["points"].numpy(), want["points"].numpy(),
+                               atol=3e-3, rtol=3e-3)
+    for k in ("cost_initial", "cost_final"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4)
+    assert torch.equal(got["obs_w"] > 0, want["obs_w"] > 0)
+    assert float(got["cost_final"]) < 0.5 * float(got["cost_initial"])
+
+
+def test_bundle_adjust_needs_no_host_sync():
+    """One solve (with a prior: the ``_ex`` inverse and solves, the LM
+    accept/reject on the device) under ``set_sync_debug_mode('error')``:
+    any synchronizing call would raise."""
+    need_cuda()
+    fn, kw = _ba_call("cuda", prior=True)
+    fn(**kw)  # warm-up: the first solver calls may load libraries
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(**kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(out["poses"]).all())
+
+
+@pytest.mark.parametrize("graph", [True, False], ids=["graph", "eager"])
+def test_system_backend_composes_onto_the_corrected_pose(graph):
+    """A ``System`` with a backend on the card: after each solve the live
+    state (under the graph its buffer) holds the corrected pose, the
+    recorded pose is it, and the next frame composes onto it."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.models.backend import BackendConfig
+    cfg, _, frames = _graph_sequence(dict(SMALL, persistent_tracks=True), n_frames=10)
+    sys_ = System(cfg, device="cuda", graph=graph,
+                  backend_cfg=BackendConfig(window=3, kf_every=1, max_landmarks=256,
+                                            max_obs=2048, ba_iters=6))
+    traj = sys_.run(frames)
+    assert (sys_.graph is not None) == graph
+    if graph:
+        assert sys_.state is sys_.graph.state
+    checked = 0
+    for i, m in enumerate(sys_.metrics[:-1]):
+        nxt = sys_.metrics[i + 1]
+        if "ba" not in m or not nxt["accept"]:
+            continue
+        fresh = traj[i + 1] if "ba" not in nxt else \
+            np.linalg.inv(nxt["ba"]["correction"]) @ traj[i + 1]
+        np.testing.assert_allclose(fresh, traj[i] @ np.linalg.inv(nxt["T_21"]), atol=1e-4)
+        assert np.abs(m["ba"]["correction"] - np.eye(4)).max() > 1e-6
+        checked += 1
+    assert checked >= 5
+    assert "ba" in sys_.metrics[-1]
+    np.testing.assert_allclose(sys_.state["T_wc"].cpu().numpy(), traj[-1].astype(np.float32))

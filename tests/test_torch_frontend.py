@@ -1,5 +1,5 @@
-"""Port frontend: config and data parity, import hygiene, unported branches,
-the device default, and one LK step and one ORB step from a JAX state
+"""Port frontend: config and data parity, import hygiene, the unknown-mode
+refusal, the device default, and one LK step and one ORB step from a JAX state
 carried across by ``state_from_jax``.
 
 The JAX LK frontend runs its dense LK path (``lk_backend='pallas'``) with
@@ -69,6 +69,7 @@ def test_import_without_jax():
         "import stereo_visual_odometry_tpu_torch\n"
         "import stereo_visual_odometry_tpu_torch.models.system\n"
         "import stereo_visual_odometry_tpu_torch.utils.bridge\n"
+        "from stereo_visual_odometry_tpu_torch.models import backend, ba, marg\n"
         "from stereo_visual_odometry_tpu_torch.ops import (interp, match, orb,\n"
         "                                                 orb_pattern, patch)\n"
         "assert not any(m == 'stereo_visual_odometry_tpu' or\n"
@@ -80,14 +81,6 @@ def test_import_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
-
-
-@pytest.mark.parametrize("kw", [dict(mode="orb", persistent_tracks=True),
-                                dict(persistent_tracks=True)])
-def test_unported_branches_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        System(RunConfig(vo=tfront.VOConfig(**kw)), device="cpu")
-    assert "slice 3" in str(err.value)
 
 
 LK_BRANCHES = [dict(lk_kernel="cell"), dict(lk_kernel="v1"), dict(lk_backend="xla"),
@@ -146,9 +139,7 @@ def test_frontend_factories_default_to_cuda(make):
     make(cfg, rig_from_config(CameraConfig(), device="cpu"), device="cpu")
 
 
-def test_ba_backend_raises_and_unknown_mode_rejected():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System(RunConfig(), device="cpu", backend_cfg=object())
+def test_unknown_mode_rejected():
     with pytest.raises(ValueError):
         tfront.check_supported(tfront.VOConfig(mode="sift"))
 

@@ -3,7 +3,7 @@ utilities ported with it.
 
 * The step in buffer form (``frontend.make_buffer_step``, what
   ``models/step_graph.py`` captures) against ``step_fn`` over 4 steps on
-  every LK path and ORB: the same state and the same frame outputs bit for
+  every LK path and ORB, and both with persistent tracks: the same state and the same frame outputs bit for
   bit (the same ops on the same inputs), written into the buffers it was
   handed.
 * RANSAC draws taken outside ``ransac_pnp`` with ``pnp.draw_uniforms`` (as
@@ -47,7 +47,9 @@ ORB_SMALL = dict(SMALL, mode="orb", height=128, width=320, orb_levels=4)
 PATHS = {"dense": SMALL, "cell": dict(SMALL, lk_kernel="cell"),
          "v1": dict(SMALL, lk_kernel="v1"), "xla": dict(SMALL, lk_backend="xla"),
          "no_sweep": dict(SMALL, lk_sweep=False),
-         "not_predictive": dict(SMALL, lk_predictive=False), "orb": ORB_SMALL}
+         "not_predictive": dict(SMALL, lk_predictive=False), "orb": ORB_SMALL,
+         "lk_persistent": dict(SMALL, persistent_tracks=True),
+         "orb_persistent": dict(ORB_SMALL, persistent_tracks=True)}
 STEPS = 4
 
 
