@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (``stereo_visual_odometry_tpu_torch``)
 on one NVIDIA GPU, end to end through its ``System``: LK on each level
 tracker and prior of ``VOConfig``, ORB, persistent tracks and the
-sliding-window BA backend.
+sliding-window BA backend; then S sequences in one batched step graph
+through ``parallel.evaluate`` and the distributed BA on NCCL.
 
-    python3 chip_smoke.py    # the eighteen phases below, on cuda:0
+    python3 chip_smoke.py    # the nineteen phases below, on cuda:0
 
 Phases (each prints one line; any failure exits non-zero):
   1. device: needs ``torch.cuda.is_available()`` (no CPU path); prints
@@ -129,10 +130,25 @@ Phases (each prints one line; any failure exits non-zero):
      with the backend on phase 7's frames (>= 2 solves, ATE aligned < 1.5 x
      the JAX package's 0.4603 m on these frames); a JSON line of the leg's
      numbers, printed before the checks;
- 18. the kernel report.
+ 18. slice 4 (``parallel/``): (a) LK dense at full width, S = 4 sequences
+     of phase 6's 49 frames (the same frames, each sequence its own RANSAC
+     draws, as the JAX bench's ``bench_tpu_batched``) through
+     ``evaluate_batch`` with the batched step graph: per sequence ATE <
+     0.05 m and accept >= 0.95, K1 launched 1 + 27 x 48 for the batch;
+     then S = 1; aggregate frames/s, ms per batched frame, and of one
+     profiled replay each the nodes, busy ms and idle share; (b) ``cell``,
+     ``v1`` and ORB at S = 2 on 16 frames, each sequence within phases 8
+     and 7's bounds, launches per batched frame as unbatched; (c) the
+     batched entries of K1-K4 (one launch, a sequence axis) on phase 3-5's
+     inputs stacked to B = 3: K1, K2 exact against the plain versions, K3,
+     K4 phase 5's criteria, all bit for bit against B = 1 calls; each at
+     B = 4 in a graph against 4 x B = 1 beside 4 x the bound; (d) the
+     distributed solve on NCCL at world size 1 against ``bundle_adjust``
+     (poses 5e-3, landmarks 3e-3 relative, costs 1e-4);
+ 19. the kernel report.
 The launch counts hold without a reinit; each slice's run sets every
-count to 0 just before ``run_chunked`` (``run`` in phase 17) and reads
-them just after. The second-to-last line is the kernel report (JSON), the
+count to 0 just before ``run_chunked`` (``run`` in phase 17,
+``evaluate_batch`` in phase 18) and reads them just after. The second-to-last line is the kernel report (JSON), the
 last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -547,7 +563,7 @@ def persistent_phase(mods, cam, frames, poses_gt) -> dict:
                      f"equal to the graph's bit for bit: {same}")
         del graphed, eager
         torch.cuda.empty_cache()
-    print("[16/18] " + "; ".join(lines))
+    print("[16/19] " + "; ".join(lines))
     return launches
 
 
@@ -583,7 +599,7 @@ def ba_leg_phase(mods, cam, frames, poses_gt, smi) -> dict:
     walls = {k: [1e3 * r["wall_s"] for r in leg[k]["solves"]]
              for k in ("ba_marg", "ba_drop_oldest")}
     k1 = [launches[f"ba_leg_{k}"]["extract_windows_int"] for k in leg]
-    print(f"[17/18] BA leg passes: ATE {fe:.4f} / {mg:.4f} / {dr:.4f} m, solves {n_solves}, "
+    print(f"[17/19] BA leg passes: ATE {fe:.4f} / {mg:.4f} / {dr:.4f} m, solves {n_solves}, "
           f"K1 launches {k1}")
     prof = profile_solve(torch, mods["profiling"], be_marg, mods["ba"])
     del be_marg
@@ -600,7 +616,7 @@ def ba_leg_phase(mods, cam, frames, poses_gt, smi) -> dict:
     del r
     med = lambda v: float(np.median(v)) if v else float("nan")
     orb_wall = med([1e3 * r["wall_s"] for r in orb_solves])
-    print(f"[17/18] BA leg on {smi}, System.run on cuda, {BA_FRAMES} frames 376x1241 "
+    print(f"[17/19] BA leg on {smi}, System.run on cuda, {BA_FRAMES} frames 376x1241 "
           f"padded to {H}x{W}, LK {N_POINTS} features, persistent tracks; ATE (not aligned) "
           f"frontend-only {fe:.4f} m, BA+marg {mg:.4f} m, drop-oldest {dr:.4f} m; accept "
           + ", ".join(f"{k} {v['accept']:.3f}" for k, v in leg.items())
@@ -652,6 +668,236 @@ def ba_leg_phase(mods, cam, frames, poses_gt, smi) -> dict:
     return launches
 
 
+def stacked(torch, make, seeds):
+    """``make(seed)`` for each seed (tuples of tensors), stacked along a new
+    leading axis: one sequence per seed."""
+    parts = [make(seed) for seed in seeds]
+    return tuple(torch.stack(list(xs)) for xs in zip(*parts))
+
+
+def batched_entries(mods, bounds) -> dict:
+    """Phase 18c: K1-K4's batched entries on phase 3-5's inputs stacked to
+    B = 3 sequences (other images and points per sequence) against their
+    plain versions and against B = 1 wrapper calls, each batched call one
+    launch; then each at B = 4 (phase 14's operating point, four copies) in a
+    CUDA graph against four B = 1 calls in one, beside 4 x the single call's
+    bound (``bounds``: name -> (ms, by)). Returns name -> numbers."""
+    torch, patch, lk_cell, lk_v1 = mods["torch"], mods["patch"], mods["lk_cell"], mods["lk_v1"]
+    lk_timing, patch_timing, timing = mods["lk_timing"], mods["patch_timing"], mods["timing"]
+    k1_inputs, k2_inputs = patch_timing.k1_inputs, patch_timing.k2_inputs
+    B, out = 3, {}
+
+    def one_launch(counter, call):
+        before = counter.launches
+        res = call()
+        torch.cuda.synchronize()
+        check(counter.launches == before + 1, f"{counter.__name__}'s batched call counted "
+              f"{counter.launches - before} launches, want 1")
+        return res
+
+    err = 0.0
+    for i, (hp, wp, S) in enumerate(K1_SHAPES):
+        imgs, cors = stacked(torch, lambda sd: k1_inputs(hp, wp, S, seed=sd),
+                             [500 + 10 * i + b for b in range(B)])
+        got = one_launch(patch.extract_windows_int, lambda: patch.extract_windows_int_batched(
+            imgs, cors, S))
+        for b in range(B):
+            plain = patch.extract_windows_int_reference(imgs[b], cors[b], S)
+            check(torch.equal(got[b], plain) and
+                  torch.equal(got[b], patch.extract_windows_int(imgs[b], cors[b], S)),
+                  f"K1 batched differs at {(hp, wp, S)} sequence {b}")
+            err = max(err, float((got[b] - plain).abs().max()))
+    out["extract_windows_int"] = {"entry": "svo_extract_windows_int_batched",
+                                  "max_abs_err": err}
+    err = 0.0
+    for i, ((h, w), n) in enumerate(zip(ORB_LEVELS, ORB_BUDGETS)):
+        imgs, xy = stacked(torch, lambda sd: k2_inputs(h, w, n, seed=sd),
+                           [600 + 10 * i + b for b in range(B)])
+        got = one_launch(patch.extract_patches,
+                         lambda: patch.extract_patches_batched(imgs, xy, ORB_PATCH))
+        for b in range(B):
+            plain = patch.extract_patches_clamped(imgs[b], xy[b], ORB_PATCH)
+            check(torch.equal(got[b], plain) and
+                  torch.equal(got[b], patch.extract_patches(imgs[b], xy[b], ORB_PATCH)),
+                  f"K2 batched differs at {(h, w, n)} sequence {b}")
+            err = max(err, float((got[b] - plain).abs().max()))
+    out["extract_patches"] = {"entry": "svo_extract_patches_batched", "max_abs_err": err}
+    for name, fn, batched, plain in (
+            ("level_track_cell", lk_cell.level_track_cell, lk_cell.level_track_cell_batched,
+             lk_cell.level_track_cell_reference),
+            ("level_track_v1", lk_v1.level_track_v1, lk_v1.level_track_v1_batched,
+             lk_v1.level_track_v1_reference)):
+        err = 0.0
+        for lvl, (hp, wp) in enumerate(LK_PADDED):
+            shift = (2.3 / 2 ** lvl, -1.4 / 2 ** lvl)
+            seeds = [700 + 10 * lvl + b for b in range(B)]
+            prev, nxt = stacked(torch, lambda sd: lk_timing.textured_pair(hp, wp, shift, sd),
+                                seeds)
+            pts, guess, active = stacked(torch, lambda sd: lk_timing.lk_level_inputs(
+                hp, wp, seed=sd + 100), seeds)
+            kw = dict(win=WIN, iters=30, eps=0.01, search_radius=6, pad=PAD)
+            flow, ok = one_launch(fn, lambda: batched(prev, nxt, pts, guess, active=active,
+                                                      **kw))
+            for b in range(B):
+                args = (prev[b], nxt[b], pts[b], guess[b])
+                f1, o1, st1 = level_call(torch, fn, *args, active=active[b], **kw)
+                check(torch.equal(flow[b], f1) and torch.equal(ok[b], o1),
+                      f"{name} batched differs from B = 1 at {(hp, wp)} sequence {b}")
+                dmax, _ = compare_levels(
+                    torch, f"{name} batched vs plain {(hp, wp)} sequence {b}",
+                    (flow[b], ok[b], st1), level_call(torch, plain, *args, active=active[b], **kw),
+                    active[b], 0.01, shift, same_iters=True)
+                err = max(err, dmax)
+        out[name] = {"entry": f"svo_lk_level_{name.split('_')[-1]}_batched",
+                     "max_abs_err": err}
+
+    # B = 4 in a graph against 4 x B = 1 in one, at phase 14's points.
+    hp, wp, S = patch_timing.K1_SHAPE
+    img, cor = k1_inputs(hp, wp, S, seed=S)
+    (h, w), n, P = patch_timing.K2_SHAPE, patch_timing.K2_N, patch_timing.K2_P
+    img2, xy = k2_inputs(h, w, n, seed=7)
+    hp3, wp3 = LK_PADDED[0]
+    prev, nxt = lk_timing.textured_pair(hp3, wp3, lk_timing.SHIFT, seed=200)
+    pts, guess, active = lk_timing.lk_level_inputs(hp3, wp3, seed=300)
+    four = lambda *ts: [t.expand((4,) + tuple(t.shape)).contiguous() for t in ts]
+    kw = dict(win=WIN, iters=30, eps=0.01, search_radius=6, pad=PAD)
+    cases = {
+        "extract_windows_int": (four(img, cor), patch.extract_windows_int_batched,
+                                lambda a, b: patch.extract_windows_int(a, b, S), (S,)),
+        "extract_patches": (four(img2, xy), patch.extract_patches_batched,
+                            lambda a, b: patch.extract_patches(a, b, P), (P,)),
+        "level_track_cell": (four(prev, nxt, pts, guess, active),
+                             lambda *a: lk_cell.level_track_cell_batched(
+                                 *a[:4], active=a[4], **kw),
+                             lambda *a: lk_cell.level_track_cell(*a[:4], active=a[4], **kw), ()),
+        "level_track_v1": (four(prev, nxt, pts, guess, active),
+                           lambda *a: lk_v1.level_track_v1_batched(*a[:4], active=a[4], **kw),
+                           lambda *a: lk_v1.level_track_v1(*a[:4], active=a[4], **kw), ()),
+    }
+    for name, (args, fb, f1, extra) in cases.items():
+        batched_call = lambda fb=fb, args=args, extra=extra: fb(*args, *extra)
+        singles = lambda f1=f1, args=args: [f1(*(a[b] for a in args)) for b in range(4)]
+        runs = [timing.graph_ms(f) for f in (singles, batched_call, batched_call, singles)]
+        ms, by = bounds[name]
+        out[name].update(graph_ms_b4=min(runs[1], runs[2]), graph_ms_4x1=min(runs[0], runs[3]),
+                         bound_ms_b4=4 * ms, bound_by=by)
+    return out
+
+
+def slice4_phase(mods, cam, il, ir, poses_gt, bounds) -> tuple[dict, dict]:
+    """Phase 18: S sequences in one batched step graph through
+    ``evaluate_batch`` (a: LK dense at S = 4 and S = 1 on the 49 bench
+    frames; b: cell, v1 and ORB at S = 2 on 16), the batched entries (c)
+    and the distributed solve on NCCL at world size 1 (d). Returns (each
+    path's launches, the batched entries' numbers)."""
+    np, torch, kernels = mods["np"], mods["torch"], mods["kernels"]
+    VOConfig, trajectory, batched = mods["VOConfig"], mods["trajectory"], mods["batched"]
+    sequences = mods["sequences"]
+    zero = dict.fromkeys(kernels, 0)
+    launches, lines = {}, []
+
+    def drive(tag, vo, frames, S, want, max_ate):
+        r = batched.run_batched(vo, cam, il[:frames], ir[:frames], S, kernels=kernels)
+        launches[tag] = r["launches"]
+        ates = [trajectory.ate_rmse(t, poses_gt[:frames]) for t in r["trajectories"]]
+        check(all(len(t) == frames and np.isfinite(t).all() for t in r["trajectories"]),
+              f"{tag}: trajectories {[t.shape for t in r['trajectories']]}")
+        check(max(ates) < max_ate and min(r["accept_rate"]) >= 0.95,
+              f"{tag}: ATE {ates} (bound {max_ate} m), accept {r['accept_rate']} (>= 0.95)")
+        check(r["launches"] == want, f"{tag}: launches {r['launches']}, want {want}")
+        prof = batched.profile_replay(r["graph"].launch)
+        ms = r["ms_batched_frame"]
+        line = (f"{tag} S={S} evaluate_batch on cuda, {frames} frames {H}x{W}: ATE "
+                + "/".join(f"{a:.4f}" for a in ates) + " m, accept "
+                + "/".join(f"{a:.3f}" for a in r["accept_rate"])
+                + f", aggregate {r['frames_per_s']:.1f} frames/s, {ms:.2f} ms per batched "
+                f"frame, one profiled replay: {prof['nodes']} nodes, busy "
+                f"{prof['busy_ms']:.3f} ms, idle {1 - prof['busy_ms'] / ms:.3f}; launches "
+                f"per replay {r['graph'].per_replay}, in the run "
+                f"{ {k: v for k, v in r['launches'].items() if v} } (want "
+                f"{ {k: v for k, v in want.items() if v} }), peak {r['peak_gb']:.2f} GB")
+        out = dict(nodes=prof["nodes"], busy_ms=prof["busy_ms"], ms=ms,
+                   fps=r["frames_per_s"], ates=ates, per_replay=r["graph"].per_replay)
+        del r
+        sequences.clear()
+        torch.cuda.empty_cache()
+        lines.append(line)
+        return out
+
+    lk_vo = VOConfig(height=H, width=W, max_features=N_POINTS)
+    k1_lk = dict(zero, extract_windows_int=1 + LK_LAUNCHES_PER_STEP * (N_FRAMES - 1))
+    s4 = drive("LK-batched-S4", lk_vo, N_FRAMES, 4, k1_lk, 0.05)
+    s1 = drive("LK-batched-S1", lk_vo, N_FRAMES, 1, k1_lk, 0.05)
+    check(s4["per_replay"] == s1["per_replay"],
+          f"K1 per replay at S = 4 {s4['per_replay']} against S = 1 {s1['per_replay']}")
+    nodes = (f"nodes per replay S=4 {s4['nodes']} / S=1 {s1['nodes']} "
+             f"({s4['nodes'] / max(s1['nodes'], 1):.3f}x); aggregate frames/s "
+             f"{s4['fps']:.1f} / {s1['fps']:.1f} ({s4['fps'] / s1['fps']:.2f}x)")
+    for name in ("cell", "v1"):
+        counter = f"level_track_{name}"
+        drive(f"LK-{name}-batched-S2", VOConfig(lk_kernel=name, height=H, width=W,
+                                                 max_features=N_POINTS), BRANCH_FRAMES, 2,
+              dict(zero, extract_windows_int=BRANCH_FRAMES,
+                   **{counter: LK_LEVELS_PER_STEP * (BRANCH_FRAMES - 1)}), 0.05)
+    drive("ORB-batched-S2", VOConfig(mode="orb", height=H, width=W, max_features=ORB_FEATURES),
+          BRANCH_FRAMES, 2, dict(zero, extract_windows_int=ORB_LAUNCHES_PER_FRAME * BRANCH_FRAMES,
+                                 extract_patches=ORB_LAUNCHES_PER_FRAME * BRANCH_FRAMES), 0.07)
+    print("[18/19] slice 4, S sequences in one batched step graph (the same frames per "
+          "sequence, draws of their own): " + "; ".join(lines) + "; " + nodes)
+
+    entries = batched_entries(mods, bounds)
+    print("[18/19] the batched entries (B = 3 sequences, other images per sequence) against "
+          "their plain versions (K1, K2 exact; K3, K4 phase 5's criteria) and against B = 1 "
+          "calls (bit for bit), one launch each; at B = 4 in a graph against 4 x B = 1: "
+          + "; ".join(f"{k} ({v['entry']}) max err {v['max_abs_err']:.2e}, B=4 "
+                      f"{1e3 * v['graph_ms_b4']:.2f} us against 4xB=1 "
+                      f"{1e3 * v['graph_ms_4x1']:.2f} us, bound {1e3 * v['bound_ms_b4']:.3f} us"
+                      for k, v in entries.items()))
+    print("[18/19] " + dist_solve(mods))
+    return launches, dict(entries, s4=s4, s1=s1)
+
+
+def dist_solve(mods) -> str:
+    """Phase 18d: ``dist_ba.make_distributed_ba`` on NCCL at world size 1
+    (a ``HashStore``) against ``ba.bundle_adjust`` on the card, on the
+    multi-process demo's problem, with and without pruning: poses within
+    5e-3, landmarks within 3e-3 (absolute and relative), costs within 1e-4
+    relative, the same observations pruned (the tolerances of
+    ``test_bundle_adjust_on_cuda_matches_cpu``)."""
+    np, torch, ba = mods["np"], mods["torch"], mods["ba"]
+    dist_ba, multihost, demo = mods["dist_ba"], mods["multihost"], mods["multihost_demo"]
+    from stereo_visual_odometry_tpu_torch.ops.camera import Pinhole
+    multihost.initialize(world_size=1, rank=0, backend="nccl")
+    cam_p, poses_gt, _, table, poses_init, points_init = demo.problem(1)
+    t = lambda a: torch.as_tensor(np.asarray(a), device="cuda")
+    cam = Pinhole.create(*cam_p, device="cuda")
+    obs = [t(a) for a in table]
+    parts = []
+    for prune in (None, 8.0):
+        solve = dist_ba.make_distributed_ba(cam, None, n_kf=len(poses_init),
+                                            n_lm=len(points_init), n_iters=10, prune_px=prune,
+                                            device="cuda")
+        got = solve(t(poses_init), t(points_init), *obs)
+        want = ba.bundle_adjust(cam, t(poses_init), t(points_init), *obs, n_iters=10,
+                                n_fixed=1, prune_px=prune)
+        dp = float((got["poses"] - want["poses"]).abs().max())
+        dx = float(((got["points"] - want["points"]).abs()
+                    / (3e-3 + 3e-3 * want["points"].abs())).max())
+        dc = max(abs(float(got[k]) / float(want[k]) - 1) for k in ("cost_initial", "cost_final"))
+        same = bool(torch.equal(got["obs_w"] > 0, want["obs_w"] > 0))
+        check(dp <= 5e-3 and dx <= 1.0 and dc <= 1e-4 and same,
+              f"distributed solve (prune {prune}) off bundle_adjust: poses {dp}, landmarks "
+              f"{dx} of the bound, costs {dc}, same pruned {same}")
+        err = float((got["poses"].cpu().numpy() - poses_gt).__abs__().max())
+        parts.append(f"prune {prune}: poses {dp:.2e} apart, landmarks {dx:.3f} of the bound, "
+                     f"costs {dc:.2e} relative, cost {float(got['cost_initial']):.1f} -> "
+                     f"{float(got['cost_final']):.3f}, max pose error {err:.4f}")
+    torch.distributed.destroy_process_group()
+    return ("distributed BA on NCCL at world size 1 (HashStore) against bundle_adjust on "
+            "cuda, the multi-process demo's problem (6 keyframes, 120 landmarks): "
+            + "; ".join(parts))
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     t_start = time.perf_counter()
@@ -666,7 +912,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/18] device: {kind} x{torch.cuda.device_count()}, torch "
+    print(f"[1/19] device: {kind} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, cuda {torch.version.cuda}")
     print(smi)
 
@@ -718,7 +964,7 @@ def main() -> int:
     roll.launcher()
     bind_s = time.perf_counter() - t0
     cxx = native.extension_command("roll_binding")[0]
-    print(f"[2/18] kernel library {lib_path.name} {how} in {build_s:.2f}s; K7 binding "
+    print(f"[2/19] kernel library {lib_path.name} {how} in {build_s:.2f}s; K7 binding "
           f"{ext_path.name} {how_ext} with {cxx} (no ninja) in {bind_s:.2f}s; "
           f"ptxas: {'; '.join(ptxas)}")
 
@@ -743,7 +989,7 @@ def main() -> int:
         check(err == 0.0, f"K1 disagrees with its plain version at {(hp, wp, S, n)}: "
               f"max abs err {err}")
         k1_err = max(k1_err, err)
-    print(f"[3/18] K1 vs plain at {len(K1_SHAPES)} LK shapes (N={N_POINTS}), the XLA "
+    print(f"[3/19] K1 vs plain at {len(K1_SHAPES)} LK shapes (N={N_POINTS}), the XLA "
           f"tracker's S=64/36 windows, {len(orb_maps)} ORB score maps (S=3, "
           f"N=budget) and N={K1_RAGGED} at S=24, (5, 7), (64, 36) ({len(k1_cases)} "
           f"cases): max abs err {k1_err} (tolerance 0: a copy)")
@@ -772,7 +1018,7 @@ def main() -> int:
             bits_p = orb.brief_bits_from_patches(want, None)
             bit_flips += int((bits_k != bits_p).sum())
     check(bit_flips == 0, f"K2's patches give {bit_flips} other BRIEF bits")
-    print(f"[4/18] K2 vs plain (on the padded image, and the clamped plain version) at "
+    print(f"[4/19] K2 vs plain (on the padded image, and the clamped plain version) at "
           f"{len(ORB_LEVELS)} ORB level shapes (P={ORB_PATCH}, N={ORB_BUDGETS}), P=31 at "
           f"levels 0-1, and centres up to 2 px outside on all four sides at levels 0, 3, "
           f"6 for P={ORB_PATCH}/31 and N={K2_RAGGED} ({len(k2_cases)} cases): max abs err "
@@ -805,7 +1051,7 @@ def main() -> int:
     empty = [no_points(torch, name, kernels, lk_bool, lambda name=name: lk_fn[name](
         args[0], args[1], args[2][:0], args[3][:0], pad=PAD, active=active[:0]))
         for name in ("cell", "v1")]
-    print(f"[5/18] K3 (cell) and K4 (v1) vs plain (kernel against plain), N={N_POINTS}, "
+    print(f"[5/19] K3 (cell) and K4 (v1) vs plain (kernel against plain), N={N_POINTS}, "
           f"win {WIN}, 30 iters, {int(active.sum())} active: " + "; ".join(lines)
           + f"; N = 0, empty and no launch counted: {', '.join(empty)}")
 
@@ -823,14 +1069,14 @@ def main() -> int:
     launches = {}
     lk, launches["lk"] = run(VOConfig(**lk_vo), "LK")
     want = dict(zero, extract_windows_int=1 + LK_LAUNCHES_PER_STEP * (N_FRAMES - 1))
-    print("[6/18] " + describe_slice("LK", lk, launches["lk"], want))
+    print("[6/19] " + describe_slice("LK", lk, launches["lk"], want))
     check_slice("LK", lk, launches["lk"], want, 0.05, 0.95)
 
     orb_cfg = VOConfig(mode="orb", height=H, width=W, max_features=ORB_FEATURES)
     ob, launches["orb"] = run(orb_cfg, "ORB")
     want = dict(zero, extract_windows_int=ORB_LAUNCHES_PER_FRAME * N_FRAMES,
                 extract_patches=ORB_LAUNCHES_PER_FRAME * N_FRAMES)
-    print("[7/18] " + describe_slice("ORB", ob, launches["orb"], want))
+    print("[7/19] " + describe_slice("ORB", ob, launches["orb"], want))
     check_slice("ORB", ob, launches["orb"], want, 0.07, 0.95)
 
     # 8. The LK slice on K3 and on K4 ---------------------------------------
@@ -843,7 +1089,7 @@ def main() -> int:
                                     want))
         check_slice(f"LK-{name}", r, launches[f"lk_{name}"], want, 0.05, 0.95)
         lines[-1] += f"; {lk['ms_frame'] / r['ms_frame']:.2f}x the dense LK ms/frame"
-    print("[8/18] " + "; ".join(lines) + f" (dense: {lk['ms_frame']:.2f} ms/frame)")
+    print("[8/19] " + "; ".join(lines) + f" (dense: {lk['ms_frame']:.2f} ms/frame)")
 
     # 9. The kernel-free LK branches on the first 16 frames -------------------
     lines = []
@@ -856,7 +1102,7 @@ def main() -> int:
                                     BRANCH_FRAMES))
         check_slice(f"LK-{tag}", r, launches[f"lk_{tag}"], want, 0.15, 0.9,
                     ate="ate_from_1")
-    print("[9/18] " + "; ".join(lines))
+    print("[9/19] " + "; ".join(lines))
 
     # 10. K5 and K6 vs plain, and vs the K3 and K4 kernels ---------------------
     lines = []
@@ -938,7 +1184,7 @@ def main() -> int:
         lines.append(line)
     empty = [no_points(torch, name, kernels, lk_bool, lambda name=name: lk_fn[name](
         args[0], args[1], args[2][:0], args[3][:0], pad=PAD)) for name in ("block", "v2")]
-    print(f"[10/18] K5 (block) and K6 (v2) vs plain (K3's and K4's plain versions) and "
+    print(f"[10/19] K5 (block) and K6 (v2) vs plain (K3's and K4's plain versions) and "
           f"vs the K3/K4 kernels, N={N_POINTS}, win {WIN}, 30 iters, K5 with phase 5's "
           f"mask, K6's wrapper on every point and its bare entry with the mask: "
           + "; ".join(lines)
@@ -989,7 +1235,7 @@ def main() -> int:
             refused.append(str(e).split(",")[0])
         check(roll.roll.launches == before, "K7 counted a launch for a refused input")
     check(len(refused) == 2, f"K7 took a float64 or a 3-D input: {refused}")
-    print(f"[11/18] K7 through its binding vs plain (torch.roll) over {k7_cases} cases: axis "
+    print(f"[11/19] K7 through its binding vs plain (torch.roll) over {k7_cases} cases: axis "
           f"0 and 1, ({probe_roll.ROWS[0]}..{probe_roll.ROWS[-1]}, {probe_roll.COLS}), amounts "
           f"0, 1, 3, 7, 9 (axis 0) / 100 (axis 1), -1, the axis length and + 5, and on the "
           f"one-element kernel (37, 255) and a (128, 256) view 4 bytes off alignment: max abs "
@@ -1020,7 +1266,7 @@ def main() -> int:
     k8_node = {label: one_node(torch, profiling, f"K8 {label}",
                                lambda label=label: lk_breakdown.run_variant(label, probe_in))
                for label in lk_breakdown.VARIANTS}
-    print(f"[12/18] K8 vs plain at {tuple(probe_in['prev'].shape)}, N={len(probe_in['pts'])}: "
+    print(f"[12/19] K8 vs plain at {tuple(probe_in['prev'].shape)}, N={len(probe_in['pts'])}: "
           + ", ".join(f"{lb} relative error {k8[lb]['rel_err']:.2e} (max abs "
                       f"{k8[lb]['abs_err']:.3g})" for lb in split_labels)
           + f" (tolerance 1e-4: sums in another order); full equals K5's output bit for "
@@ -1059,7 +1305,7 @@ def main() -> int:
     probe_t = probe_block.timing_ms(probe_in)
     k8_graph = lk_breakdown.timing_ms(probe_in)
     k8_split = lk_breakdown.split(k8_graph)
-    print("[13/18] probes (launches read after each run: "
+    print("[13/19] probes (launches read after each run: "
           + ", ".join(f"{p} {({k: v for k, v in launches[p].items() if v})}"
                       for p in probe_paths) + "): "
           + "; ".join(probe_block.describe(probe_out["probe_lk_block"], probe_t))
@@ -1164,7 +1410,7 @@ def main() -> int:
                 f"{us(t['library_graph_ms'])} (max diff {t['library_max_diff']}), bound "
                 f"{b_ms * 1e3:.3f} us ({b_by}), wrapper host time {t['host_us']:.2f} us")
 
-    print("[14/18] K3-K6 (probes/lk_timing.py; graphs of "
+    print("[14/19] K3-K6 (probes/lk_timing.py; graphs of "
           f"{lk_timing.GRAPH_CALLS} calls; staged share at margins {lk_timing.MARGINS}, "
           f"shipped {lk_v1.STAGE_MARGIN}; K6's wrapper on every point, one device op "
           f"(phase 10), its kernel alone with the mask): " + "; ".join(
@@ -1180,15 +1426,15 @@ def main() -> int:
               f"(largest {us(b['kernel_graph_ms_max'])}), iterations {b['iters']}, staged "
               f"share {b['staged_share']}"
               for k, b in lkt["bench"].items()))
-    print("[14/18] host time per K1 wrapper call, us (perf_counter over "
+    print("[14/19] host time per K1 wrapper call, us (perf_counter over "
           f"{patch_timing.HOST_CALLS} calls, no sync): "
           + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
-    print("[14/18] host time per K7 call, us (the same way): "
+    print("[14/19] host time per K7 call, us (the same way): "
           + ", ".join(f"{k} {v:.3f}" for k, v in k7_host.items())
           + f"; in a graph of {patch_timing.GRAPH_CALLS} calls, in turns: one row "
           f"{us(pt['k7']['one_row_graph_ms'])} (K7's practical floor), "
           f"{patch_timing.K7_SHAPE} {us(pt['k7']['graph_ms_beside_one_row'])}")
-    print(f"[14/18] CUDA events, {patch_timing.B2B_CALLS} calls each (5 for the LK plain "
+    print(f"[14/19] CUDA events, {patch_timing.B2B_CALLS} calls each (5 for the LK plain "
           f"versions), and CUDA graphs of {patch_timing.GRAPH_CALLS} calls: "
           + patch_line(f"K1 S={S} N={N_POINTS} on {patch_timing.K1_SHAPE[:2]}", "k1",
                        k1_plain, k1_bound, k1_by, "grid_sample(nearest)") + "; "
@@ -1234,9 +1480,9 @@ def main() -> int:
                                      fr[-1]))
         del eager, graphed
         torch.cuda.empty_cache()  # the graph's pool
-    print("[15/18] eager against graph, System.run_chunked in turns (eager, then graph; "
+    print("[15/19] eager against graph, System.run_chunked in turns (eager, then graph; "
           "steady ms/frame after the first chunk): " + "; ".join(lines))
-    print("[15/18] one profiled step per path (eager: step_fn; graph: one replay; device "
+    print("[15/19] one profiled step per path (eager: step_fn; graph: one replay; device "
           "ops = kernels, copies and fills; idle = 1 - busy / wall): " + "; ".join(profiles))
 
     # 16-17. Slice 3: persistent tracks, the BA leg ------------------------
@@ -1246,7 +1492,21 @@ def main() -> int:
     launches.update(persistent_phase(mods, cam, frames, poses_gt))
     launches.update(ba_leg_phase(mods, cam, frames, poses_gt, smi))
 
-    # 18. Kernel report ---------------------------------------------------
+    # 18. Slice 4: S sequences in one step graph, the batched entries, the
+    # distributed solve ------------------------------------------------------
+    from stereo_visual_odometry_tpu_torch.parallel import dist_ba, multihost, sequences
+    from stereo_visual_odometry_tpu_torch.probes import batched, multihost_demo
+    mods.update(patch=patch, lk_cell=lk_cell, lk_v1=lk_v1, lk_timing=lk_timing,
+                patch_timing=patch_timing, timing=timing, batched=batched,
+                sequences=sequences, dist_ba=dist_ba, multihost=multihost,
+                multihost_demo=multihost_demo)
+    bounds = {"extract_windows_int": (k1_bound, k1_by), "extract_patches": (k2_bound, k2_by),
+              "level_track_cell": (lk_t["cell"]["bound_ms"], lk_t["cell"]["bound_by"]),
+              "level_track_v1": (lk_t["v1"]["bound_ms"], lk_t["v1"]["bound_by"])}
+    s4_launches, s4 = slice4_phase(mods, cam, il, ir, poses_gt, bounds)
+    launches.update(s4_launches)
+
+    # 19. Kernel report ---------------------------------------------------
     src = "stereo_visual_odometry_tpu_torch/csrc/"
     by_path = lambda name: {p: ln[name] for p, ln in launches.items()}
     timed_keys = ("ms", "graph_ms", "library_ms", "library_graph_ms", "library_max_diff")
@@ -1295,9 +1555,11 @@ def main() -> int:
                    **k8_t["reload3"], "library_ms": None, "variants": k8_t,
                    "split_graph_ms": k8_split})
     for entry in report:
+        if entry["name"] in s4:  # K1-K4: the batched entry beside the kernel
+            entry["batched"] = s4[entry["name"]]
         entry["launches_by_path"] = by_path(entry["name"])
         entry["launches"] = sum(entry["launches_by_path"].values())
-    print(f"[18/18] kernel report and result ({time.perf_counter() - t_start:.1f} s since the "
+    print(f"[19/19] kernel report and result ({time.perf_counter() - t_start:.1f} s since the "
           "start)")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,14 @@
 //     store instructions that are already whole lines.
 // Launches on the caller's stream, allocates nothing, does not synchronise,
 // returns cudaGetLastError().
+//
+// The sequence axis (svo_extract_patches_batched): B images of (H, W), B x N
+// centres and B x N patches, each contiguous, in one launch with
+// gridDim.y = B; block (x, y) offsets the image, centre and output pointers
+// by sequence y and runs the body above unchanged, with its taps clamped to
+// its own image. The JAX package has no batch rule for this kernel (Pallas
+// batches it with a grid axis); the vmapped ORB step reaches it, so it gets
+// the same axis as K1. svo_extract_patches is the batched launch with B = 1.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -70,6 +78,10 @@ __global__ void __launch_bounds__(kThreads)
 extract_patches_kernel(const float* __restrict__ img, int h, int w,
                        const float* __restrict__ centers, int n, int P, int pad,
                        int ppb, float* __restrict__ out) {
+  const size_t seq = blockIdx.y;
+  img += seq * h * w;
+  centers += seq * n * 2;
+  out += seq * n * P * P;
   extern __shared__ float4 smem[];
   float4* frac = smem;                                    // per patch: fy, fx, 1-fy, 1-fx
   int2* corner = reinterpret_cast<int2*>(smem + ppb);     // per patch: first tap, unpadded
@@ -118,12 +130,13 @@ extract_patches_kernel(const float* __restrict__ img, int h, int w,
 
 }  // namespace
 
-extern "C" int svo_extract_patches(const float* img, int h, int w, const float* centers,
-                                   int n, int P, int pad, float* out, int device,
-                                   void* stream) {
-  if (n == 0) return 0;
+extern "C" int svo_extract_patches_batched(const float* img, int h, int w,
+                                           const float* centers, int n, int batch, int P,
+                                           int pad, float* out, int device, void* stream) {
+  if (n == 0 || batch == 0) return 0;
   if (P < 1 || pad < 0 || h < 1 || w < 1 || h + 2 * pad < P + 1 ||
-      w + 2 * pad < P + 1 || static_cast<long long>(h) * w > INT_MAX)
+      w + 2 * pad < P + 1 || batch < 0 || batch > 65535 ||
+      static_cast<long long>(h) * w > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   svo::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
@@ -142,8 +155,14 @@ extern "C" int svo_extract_patches(const float* img, int h, int w, const float* 
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int blocks = (n + ppb - 1) / ppb;
+  const dim3 blocks((n + ppb - 1) / ppb, batch);
   extract_patches_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       img, h, w, centers, n, P, pad, ppb, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int svo_extract_patches(const float* img, int h, int w, const float* centers,
+                                   int n, int P, int pad, float* out, int device,
+                                   void* stream) {
+  return svo_extract_patches_batched(img, h, w, centers, n, 1, P, pad, out, device, stream);
 }

@@ -32,6 +32,17 @@
 // The kernel clamps them again, exactly as the wrapper's plain version does,
 // so both agree for any input. It launches on the caller's stream,
 // allocates nothing, does not synchronise, and returns cudaGetLastError().
+//
+// The sequence axis (svo_extract_windows_int_batched): B images of
+// (Hp, Wp), B x N corners and B x N windows, each contiguous, in one launch
+// with gridDim.y = B; block (x, y) offsets the image, corner and output
+// pointers by sequence y and runs the body above unchanged. The clamps stay
+// per image, so no window reads a neighbouring sequence. This replaces the
+// JAX batch rule (patch_pallas.py:147-163), which stacks the B images into
+// one (B*Hp, Wp) image and offsets each corner's row by b*Hp: the stack is
+// a copy Pallas needs for its one image operand; a pointer offset per
+// block copies nothing and is exact. svo_extract_windows_int is the batched
+// launch with B = 1, under its own C contract.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -48,6 +59,10 @@ __global__ void __launch_bounds__(kThreads)
 extract_windows_int_kernel(const float* __restrict__ img, int hp, int wp,
                            const int32_t* __restrict__ corners, int n, int Sh, int Sw,
                            int log2_group, float* __restrict__ out) {
+  const size_t seq = blockIdx.y;
+  img += seq * hp * wp;
+  corners += seq * n * 2;
+  out += seq * n * Sh * Sw;
   const int k = blockIdx.x * (kThreads >> log2_group) + (threadIdx.x >> log2_group);
   if (k >= n) return;
   const int lane = threadIdx.x & ((1 << log2_group) - 1);
@@ -93,12 +108,12 @@ int group_log2(int units) {
 
 }  // namespace
 
-extern "C" int svo_extract_windows_int(const float* img, int hp, int wp,
-                                       const int32_t* corners, int n, int Sh,
-                                       int Sw, float* out, int device,
-                                       void* stream) {
-  if (n == 0) return 0;
-  if (Sh < 1 || Sw < 1 || Sh > hp || Sw > wp ||
+extern "C" int svo_extract_windows_int_batched(const float* img, int hp, int wp,
+                                               const int32_t* corners, int n, int batch,
+                                               int Sh, int Sw, float* out, int device,
+                                               void* stream) {
+  if (n == 0 || batch == 0) return 0;
+  if (Sh < 1 || Sw < 1 || Sh > hp || Sw > wp || batch < 0 || batch > 65535 ||
       static_cast<long long>(hp) * wp > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   svo::DeviceGuard guard(device);
@@ -107,7 +122,7 @@ extern "C" int svo_extract_windows_int(const float* img, int hp, int wp,
   const bool quads = ss % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   const int lg = group_log2(quads ? ss / 4 : ss);
   const int per_cta = kThreads >> lg;
-  const int blocks = (n + per_cta - 1) / per_cta;
+  const dim3 blocks((n + per_cta - 1) / per_cta, batch);
   const auto s = static_cast<cudaStream_t>(stream);
   if (quads) {
     extract_windows_int_kernel<true><<<blocks, kThreads, 0, s>>>(
@@ -117,4 +132,12 @@ extern "C" int svo_extract_windows_int(const float* img, int hp, int wp,
         img, hp, wp, corners, n, Sh, Sw, lg, out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int svo_extract_windows_int(const float* img, int hp, int wp,
+                                       const int32_t* corners, int n, int Sh,
+                                       int Sw, float* out, int device,
+                                       void* stream) {
+  return svo_extract_windows_int_batched(img, hp, wp, corners, n, 1, Sh, Sw, out, device,
+                                         stream);
 }

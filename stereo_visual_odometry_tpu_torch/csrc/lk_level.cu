@@ -71,6 +71,23 @@
 // still iterating after `iters` keeps its ok. Launches on the caller's
 // stream, allocates nothing, does not synchronise, and returns
 // cudaGetLastError().
+//
+// The sequence axis (svo_lk_level_cell_batched, svo_lk_level_v1_batched):
+// B level pairs of (Hp, Wp) and B x N points, guesses, masks, flows, oks
+// and statistics, each contiguous, in one launch with gridDim.y = B; block
+// (k, y) offsets every pointer by sequence y and runs the body above
+// unchanged. Its corner clamps stay per image, so no window reads a
+// neighbouring sequence. This replaces K3's JAX batch rule
+// (lk_pallas_cell.py:238-268), which stacks the B images into one with a
+// 32-row edge-replicated guard band between them (its kernel clamps at the
+// stack's bounds) and offsets each point's row by a float32 b*Hp': a copy
+// of both levels, and a row offset that moves fractional positions by up
+// to 2^-12 px at S*Hp' ~ 4k. A pointer offset per block copies nothing and
+// is exact: sequence y's points compute what a B = 1 call on its pair
+// computes, bit for bit. K4 has no JAX batch rule (Pallas batches it with
+// a grid axis); the vmapped v1 step reaches it, so it gets the same axis.
+// svo_lk_level_cell and svo_lk_level_v1 are the batched launch with B = 1,
+// under their own C contracts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -154,6 +171,17 @@ lk_level_kernel(const float* __restrict__ prev, const float* __restrict__ next,
                 int win, int iters, float eps2, float min_eig, int pad, float radius,
                 float* __restrict__ flow, bool* __restrict__ ok_out,
                 int32_t* __restrict__ stats) {
+  {
+    const size_t seq = blockIdx.y, n = gridDim.x;
+    prev += seq * hp * wp;
+    next += seq * hp * wp;
+    pts += seq * n * 2;
+    guess += seq * n * 2;
+    if (active != nullptr) active += seq * n;
+    flow += seq * n * 2;
+    ok_out += seq * n;
+    if (stats != nullptr) stats += seq * n * 2;
+  }
   extern __shared__ float smem[];
   const int k = blockIdx.x;
   const int tid = threadIdx.x;
@@ -323,11 +351,12 @@ lk_level_kernel(const float* __restrict__ prev, const float* __restrict__ next,
 
 template <bool kCell>
 int launch(const float* prev, const float* next, int hp, int wp, const float* pts,
-           const float* guess, const uint8_t* active, int n, int win, int iters,
+           const float* guess, const uint8_t* active, int n, int batch, int win, int iters,
            float eps2, float min_eig, int pad, float radius, float* flow, bool* ok,
            int32_t* stats, int device, void* stream) {
-  if (n == 0) return 0;
-  if (win < 1 || hp < win + 3 || wp < win + 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || batch == 0) return 0;
+  if (win < 1 || hp < win + 3 || wp < win + 3 || batch < 0 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   svo::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const int side = win + 1 + 2 * kMargin;
@@ -341,7 +370,7 @@ int launch(const float* prev, const float* next, int hp, int wp, const float* pt
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  lk_level_kernel<kCell><<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  lk_level_kernel<kCell><<<dim3(n, batch), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       prev, next, hp, wp, pts, guess, active, win, iters, eps2, min_eig, pad, radius, flow,
       ok, stats);
   return static_cast<int>(cudaGetLastError());
@@ -349,13 +378,33 @@ int launch(const float* prev, const float* next, int hp, int wp, const float* pt
 
 }  // namespace
 
+extern "C" int svo_lk_level_cell_batched(const float* prev, const float* next, int hp,
+                                         int wp, const float* pts, const float* guess,
+                                         const uint8_t* active, int n, int batch, int win,
+                                         int iters, float eps2, float min_eig, int pad,
+                                         float radius, float* flow, bool* ok,
+                                         int32_t* stats, int device, void* stream) {
+  return launch<true>(prev, next, hp, wp, pts, guess, active, n, batch, win, iters, eps2,
+                      min_eig, pad, radius, flow, ok, stats, device, stream);
+}
+
+extern "C" int svo_lk_level_v1_batched(const float* prev, const float* next, int hp, int wp,
+                                       const float* pts, const float* guess,
+                                       const uint8_t* active, int n, int batch, int win,
+                                       int iters, float eps2, float min_eig, int pad,
+                                       float radius, float* flow, bool* ok, int32_t* stats,
+                                       int device, void* stream) {
+  return launch<false>(prev, next, hp, wp, pts, guess, active, n, batch, win, iters, eps2,
+                       min_eig, pad, radius, flow, ok, stats, device, stream);
+}
+
 extern "C" int svo_lk_level_cell(const float* prev, const float* next, int hp, int wp,
                                  const float* pts, const float* guess,
                                  const uint8_t* active, int n, int win, int iters,
                                  float eps2, float min_eig, int pad, float radius,
                                  float* flow, bool* ok, int32_t* stats, int device,
                                  void* stream) {
-  return launch<true>(prev, next, hp, wp, pts, guess, active, n, win, iters, eps2,
+  return launch<true>(prev, next, hp, wp, pts, guess, active, n, 1, win, iters, eps2,
                       min_eig, pad, radius, flow, ok, stats, device, stream);
 }
 
@@ -365,6 +414,6 @@ extern "C" int svo_lk_level_v1(const float* prev, const float* next, int hp, int
                                float eps2, float min_eig, int pad, float radius,
                                float* flow, bool* ok, int32_t* stats, int device,
                                void* stream) {
-  return launch<false>(prev, next, hp, wp, pts, guess, active, n, win, iters, eps2,
+  return launch<false>(prev, next, hp, wp, pts, guess, active, n, 1, win, iters, eps2,
                        min_eig, pad, radius, flow, ok, stats, device, stream);
 }

@@ -30,10 +30,6 @@ import torch
 from ..ops import se3
 from ..ops.camera import Pinhole
 
-# The all-reduce hooks of the JAX solver serve the distributed BA
-# (``parallel/dist_ba.py``), a later slice of the port.
-_SLICE_DIST = "ROADMAP.md Queue 1, slice 4 (multi-sequence and distributed)"
-
 
 def project_residuals(cam: Pinhole, T_cw: torch.Tensor, pts_w: torch.Tensor,
                       obs_uv: torch.Tensor, obs_right: torch.Tensor | None = None,
@@ -200,37 +196,54 @@ def _apply(poses, points, dx_pose, dx_point):
     return se3.se3_exp(dx_pose) @ poses, points + dx_point
 
 
-def _check_single_device(reduce_tree, schur_reduce) -> None:
-    if reduce_tree is not None or schur_reduce:
-        raise NotImplementedError(
-            f"reduce_tree / schur_reduce (the distributed BA) are not ported yet: {_SLICE_DIST}")
-
-
 def _lm_loop(cam, poses, points, obs_kf, obs_lm, obs_uv, obs_w, n_iters, n_fixed,
              huber_px, init_damping, robust="huber", obs_right=None, T_rl=None,
              reduce_tree=None, prior=None, schur_reduce=False):
     """One LM phase of ``n_iters`` damped Schur steps, each accepted on the
     device iff the cost is finite and lower. ``prior``: a marginalization
-    prior (``models/marg.py``) or None. ``reduce_tree`` and ``schur_reduce``
-    keep the JAX signature for the distributed BA; only their defaults
-    (one device) run. Returns (poses, points, damping, cost, cost0)."""
-    _check_single_device(reduce_tree, schur_reduce)
+    prior (``models/marg.py``) or None. Returns (poses, points, damping,
+    cost, cost0).
+
+    ``reduce_tree`` (JAX ``models/ba.py:240-310``) sums trees of tensors
+    across observation shards: None on one device, an all-reduce in the
+    distributed solve (``parallel/dist_ba.py``). A cost probe reduces only
+    its scalar. ``schur_reduce`` moves a step's reduction after landmark
+    elimination (shards must then be landmark-coherent,
+    ``dist_ba.partition_obs_by_landmark``): the reduced camera system
+    (S_part (K, K, 6, 6), b_part, Hpp, bp) and each shard's landmark
+    update are reduced, never the dense (K, L, 6, 3) coupling, and the
+    prior's gradient and cross blocks join after the reduction. Without
+    it the assembled equations are reduced whole."""
     from . import marg
 
     n_kf, n_lm = poses.shape[0], points.shape[0]
+    red = (lambda t: t) if reduce_tree is None else reduce_tree
 
     def eqs_of(p, x):
         return assemble_normal_eqs(cam, p, x, obs_kf, obs_lm, obs_uv, obs_w, huber_px,
                                    n_kf, n_lm, robust=robust, obs_right=obs_right, T_rl=T_rl)
 
     def cost_of(p, x):
-        c = eqs_of(p, x)["cost"]
+        c = red(eqs_of(p, x)["cost"])
         if prior is not None:
             c = c + marg.prior_energy(prior, p)
         return c
 
     def step_of(p, x, lam):
         e = eqs_of(p, x)
+        if schur_reduce and reduce_tree is not None:
+            reduced, local = schur_partials(e, lam)
+            reduced = red(reduced)
+            cross = None
+            if prior is not None:
+                reduced = dict(reduced, bp=reduced["bp"] + marg.prior_gradient(
+                    prior, marg.prior_deltas(prior, p)))
+                cross = prior["H"]
+            dxp = solve_reduced(reduced, lam, n_fixed, Hpp_cross=cross)
+            # Each shard back-substitutes its own landmarks (the others give
+            # zero); the sum is the whole update on every shard.
+            return dxp, red(back_substitute(local, dxp))
+        e = red(e)
         if prior is not None:
             e = marg.add_prior_to_eqs(e, prior, p)
         return solve_schur(e, lam, n_fixed)
@@ -256,15 +269,17 @@ def _solve_phases(cam, poses, points, obs_kf, obs_lm, obs_uv, obs_w, n_iters, n_
                   reduce_tree=None, prior=None, schur_reduce=False):
     """The whole solve schedule (JAX ``ba.py:333``): graduated
     non-convexity (Geman-McClure at 16, 4 and 1 times ``huber_px``) or one
-    Huber phase, then optionally prune-and-repolish. Returns (poses,
-    points, damping, cost_final, cost_initial, obs_w)."""
-    _check_single_device(reduce_tree, schur_reduce)
+    Huber phase, then optionally prune-and-repolish (a decision per
+    observation, local to a shard). ``reduce_tree`` and ``schur_reduce``
+    as in ``_lm_loop``. Returns (poses, points, damping, cost_final,
+    cost_initial, obs_w)."""
     if gm_polish:
         schedule = [("gm", 16.0, n_iters), ("gm", 4.0, max(n_iters // 2, 2)),
                     ("gm", 1.0, max(n_iters // 2, 2))]
     else:
         schedule = [("huber", 1.0, n_iters)]
-    kw = dict(obs_right=obs_right, T_rl=T_rl, prior=prior)
+    kw = dict(obs_right=obs_right, T_rl=T_rl, prior=prior, reduce_tree=reduce_tree,
+              schur_reduce=schur_reduce)
     poses_f, points_f, cost0 = poses, points, None
     for robust, mult, iters in schedule:
         poses_f, points_f, lam_f, cost_f, c0 = _lm_loop(

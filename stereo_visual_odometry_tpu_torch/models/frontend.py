@@ -377,6 +377,7 @@ def make_lk_frontend(cfg: VOConfig, rig: StereoRig, device="cuda",
             metrics.update(metric_upd)
         return new_state, metrics
 
+    step_fn.cfg = cfg  # the config of the step a CUDA graph captures (parallel/sequences.py)
     return init_fn, step_fn
 
 
@@ -506,6 +507,7 @@ def make_orb_frontend(cfg: VOConfig, rig: StereoRig, device="cuda",
                       "track_id_prev_slots": track_id}
         return state_upd, metric_upd
 
+    step_fn.cfg = cfg  # the config of the step a CUDA graph captures (parallel/sequences.py)
     return init_fn, step_fn
 
 

@@ -51,14 +51,18 @@ def prior_energy(prior: dict, poses: torch.Tensor) -> torch.Tensor:
     return _energy(prior, prior_deltas(prior, poses))
 
 
+def prior_gradient(prior: dict, delta: torch.Tensor) -> torch.Tensor:
+    """The prior's masked (K, 6) gradient at the pose deltas ``delta``."""
+    return (torch.einsum("kjab,jb->ka", prior["H"], delta) + prior["b"]) * prior["mask"][:, None]
+
+
 def add_prior_to_eqs(eqs: dict, prior: dict, poses: torch.Tensor) -> dict:
     """Fold the prior into assembled normal equations: its gradient into
     ``bp``, its dense cross blocks into ``Hpp_cross`` (read by
     ``ba.solve_schur``), its energy into ``cost``."""
     delta = prior_deltas(prior, poses)
-    grad = torch.einsum("kjab,jb->ka", prior["H"], delta) + prior["b"]
     eqs = dict(eqs)
-    eqs["bp"] = eqs["bp"] + grad * prior["mask"][:, None]
+    eqs["bp"] = eqs["bp"] + prior_gradient(prior, delta)
     eqs["Hpp_cross"] = eqs.get("Hpp_cross", 0.0) + prior["H"]
     eqs["cost"] = eqs["cost"] + _energy(prior, delta)
     return eqs

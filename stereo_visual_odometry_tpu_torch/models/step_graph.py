@@ -26,6 +26,15 @@ counters read as they do eagerly.
 
 There is no fallback: a failed capture or replay raises, and so does a
 replay with a pair of another shape or dtype than the captured one.
+
+S sequences (``parallel/sequences.py``): ``batch=S`` with the step vmapped
+over a leading sequence axis (``torch.func.vmap``). The pair is then
+(S, H, W), the draws (S, num_hypotheses, 6), every state and output leaf
+S-leading, and the capture is keyed by S with the pair's shape. The
+buffer form's copies stay outside the vmap: they copy whole (S, ...)
+tensors. The kernels' batch rules (``ops/library.py``) make each kernel
+call of the vmapped step one launch, so a replay counts as many launches
+per frame as at S = 1.
 """
 from __future__ import annotations
 
@@ -51,7 +60,7 @@ class StepGraph:
     """One frontend's step (``step_fn`` of ``frontend.make_frontend(cfg,
     ...)`` on ``device``) as a CUDA graph."""
 
-    def __init__(self, step_fn, cfg: frontend_mod.VOConfig, device):
+    def __init__(self, step_fn, cfg: frontend_mod.VOConfig, device, batch: int | None = None):
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a cuda device, got {self.device}")
@@ -63,6 +72,9 @@ class StepGraph:
         self.per_replay: dict[str, int] = {}  # wrapper name -> launches per replay
         self.capture_s = 0.0  # warm-up and capture, host seconds
         self._graph = None
+        # The draws of one replay: (num_hypotheses, 6), S-leading with a batch.
+        self.u_shape = ((() if batch is None else (batch,))
+                        + (cfg.num_hypotheses, pnp.MIN_SAMPLE))
 
     def load_state(self, state: dict) -> dict:
         """Copy ``state`` into the state buffers (made on the first call, one
@@ -87,7 +99,7 @@ class StepGraph:
         dev = self.device
         self.img_l = torch.empty(img_l.shape, dtype=img_l.dtype, device=dev).copy_(img_l)
         self.img_r = torch.empty(img_r.shape, dtype=img_r.dtype, device=dev).copy_(img_r)
-        self.u = torch.zeros((self.cfg.num_hypotheses, pnp.MIN_SAMPLE), device=dev)
+        self.u = torch.zeros(self.u_shape, device=dev)
         before = _counts()
         try:
             side = torch.cuda.Stream(dev)
@@ -123,9 +135,9 @@ class StepGraph:
         call), and return the ``out`` buffers (valid until the next
         replay)."""
         key, img_l, img_r = self._pair_key(img_l, img_r)
-        if u.shape != (self.cfg.num_hypotheses, pnp.MIN_SAMPLE) or u.dtype != torch.float32:
-            raise ValueError(f"u must be float32 {(self.cfg.num_hypotheses, pnp.MIN_SAMPLE)}, "
-                             f"got {u.dtype} {tuple(u.shape)}")
+        if u.shape != self.u_shape or u.dtype != torch.float32:
+            raise ValueError(f"u must be float32 {self.u_shape}, got {u.dtype} "
+                             f"{tuple(u.shape)}")
         if self._graph is None:
             self._capture(key, img_l, img_r)
         elif key != self.key:

@@ -221,12 +221,13 @@ def disparity_grid(xy: torch.Tensor, disp: torch.Tensor, valid: torch.Tensor,
     cy, cx = _cells(xy, cell, gh, gw)
     idx = (cy * gw + cx).long()
     v = valid.to(disp.dtype)
-    # index_put_ with accumulate sums each cell's entries in index order, on
+    # index_put with accumulate sums each cell's entries in index order, on
     # the card too (sorted, no atomics): the same bits every run, and the
     # same as the CPU's sequential sums. index_add_ adds atomically there.
+    # Out of place, so that vmap can batch the sums into its own zeros.
     zeros = lambda: torch.zeros(gh * gw, dtype=disp.dtype, device=disp.device)
-    sums = zeros().index_put_((idx,), disp * v, accumulate=True)
-    cnts = zeros().index_put_((idx,), v, accumulate=True)
+    sums = zeros().index_put((idx,), disp * v, accumulate=True)
+    cnts = zeros().index_put((idx,), v, accumulate=True)
     order = torch.sort(torch.where(valid, disp, torch.inf)).values
     n_valid = torch.sum(valid)
     med = order.index_select(0, torch.clamp(n_valid // 2, 0, disp.shape[0] - 1)

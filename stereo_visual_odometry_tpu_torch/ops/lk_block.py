@@ -101,12 +101,9 @@ def level_track_block(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
         return level_track_block_reference(img_prev_pad, img_next_pad, pts, guess, win,
                                            iters, eps, min_eig, search_radius, pad,
                                            active, stats)
-    out = lk_v1.launch("svo_lk_level_block", img_prev_pad, img_next_pad, pts, guess, win,
-                       iters, eps, min_eig, pad, active, stats, search_radius,
-                       smem=cell_smem_bytes(win))
-    if len(pts):
-        level_track_block.launches += 1
-    return out
+    return lk_v1.launch("svo_lk_level_block", level_track_block, img_prev_pad,
+                        img_next_pad, pts, guess, win, iters, eps, min_eig, pad, active, stats,
+                        search_radius, smem=cell_smem_bytes(win))
 
 
 level_track_block.launches = 0

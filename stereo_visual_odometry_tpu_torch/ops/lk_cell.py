@@ -14,16 +14,18 @@ cell: 8 dots per cell, then scalar iterations until the point converges
 The iteration sequence is K4's up to summation order. No convergence gate,
 as the JAX kernel.
 
-CUDA kernel ``csrc/lk_level.cu`` (entry ``svo_lk_level_cell``), plain version
-``level_track_cell_reference``; the wrapper routes by device as
+CUDA kernel ``csrc/lk_level.cu`` (entry ``svo_lk_level_cell_batched``, B = 1
+for one level pair), plain version ``level_track_cell_reference``; the wrapper routes by device as
 ``lk_v1.level_track_v1`` does and counts its launches in
 ``level_track_cell.launches`` (none at N = 0). As K4's, the kernel does the
 JAX wrapper's tail (``lk_v1.finish``) itself, so a level call is one CUDA
 kernel: in the JAX package XLA fuses that tail into the level's jit, and
-eager PyTorch would pay six more launches for it. The JAX kernel's
-stacked-image batch rule
-(its ``custom_vmap``) is not ported here: multi-sequence batching is a
-later slice.
+eager PyTorch would pay six more launches for it. Under ``torch.func.vmap``
+the wrapper calls the custom op ``svo::lk_level_cell`` (``ops/library.py``),
+whose batch rule is the port's counterpart of the JAX kernel's stacked-image
+``custom_vmap``: S sequences are one launch of ``svo_lk_level_cell_batched``
+(``level_track_cell_batched``), with a sequence axis instead of a stack
+(``csrc/lk_level.cu``).
 """
 from __future__ import annotations
 
@@ -113,15 +115,31 @@ def level_track_cell(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
     ``lk_v1.level_track_v1`` (and JAX ``level_track_pallas_cell`` without
     ``interpret``)."""
     lk_v1.check_inputs(img_prev_pad, img_next_pad, pts, guess, active, win)
+    if stats is None and patch.transformed():
+        return torch.ops.svo.lk_level_cell(img_prev_pad, img_next_pad, pts, guess, win,
+                                           iters, float(eps), float(min_eig),
+                                           float(search_radius), pad, active)
     if img_prev_pad.device.type == "cpu":
         return level_track_cell_reference(img_prev_pad, img_next_pad, pts, guess, win,
                                           iters, eps, min_eig, search_radius, pad,
                                           active, stats)
-    out = lk_v1.launch("svo_lk_level_cell", img_prev_pad, img_next_pad, pts, guess, win,
-                       iters, eps, min_eig, pad, active, stats, search_radius)
-    if len(pts):
-        level_track_cell.launches += 1
-    return out
+    return lk_v1.launch("svo_lk_level_cell_batched", level_track_cell, img_prev_pad,
+                        img_next_pad, pts, guess, win, iters, eps, min_eig, pad, active, stats,
+                        search_radius)
+
+
+def level_track_cell_batched(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
+                             pts: torch.Tensor, guess: torch.Tensor, win: int = 21,
+                             iters: int = 30, eps: float = 0.01, min_eig: float = 1e-4,
+                             search_radius: int = 6, pad: int = 0,
+                             active: torch.Tensor | None = None):
+    """K3 on a sequence axis: (B, Hp, Wp) level pairs, (B, N, 2) points and
+    guesses, an optional (B, N) mask -> (flow (B, N, 2), ok (B, N)), sequence
+    b tracked on pair b. One launch of ``svo_lk_level_cell_batched`` on
+    CUDA."""
+    return lk_v1.batched(level_track_cell_reference, "svo_lk_level_cell_batched",
+                         level_track_cell, img_prev_pad, img_next_pad, pts, guess, win, iters,
+                         eps, min_eig, search_radius, pad, active)
 
 
 level_track_cell.launches = 0

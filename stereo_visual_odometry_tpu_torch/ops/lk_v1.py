@@ -9,11 +9,13 @@ fraction and taking ``sum((T - w) * Ix)`` and ``sum((T - w) * Iy)``; a point
 stops when its step is at most ``eps``. No convergence gate: a point still
 iterating after ``iters`` keeps its ok, as the JAX kernel.
 
-CUDA kernel ``csrc/lk_level.cu`` (entry ``svo_lk_level_v1``), plain version
-``level_track_v1_reference``. The wrapper routes by the tensors' device as
-``patch.py`` does: a CPU tensor runs the plain version, a CUDA tensor
-launches the kernel and adds one to ``level_track_v1.launches`` (N = 0
-launches and counts nothing), anything else raises. K3 (``lk_cell``), K5
+CUDA kernel ``csrc/lk_level.cu`` (entry ``svo_lk_level_v1_batched``, B = 1
+for one level pair; ``svo_lk_level_v1``, the same launch, serves the
+probes' bare timing), plain version ``level_track_v1_reference``. The
+wrapper routes by the tensors' device as ``patch.py`` does: a CPU tensor
+runs the plain version, a CUDA tensor launches the kernel and adds one to
+``level_track_v1.launches`` (N = 0 launches and counts nothing), anything
+else raises. K3 (``lk_cell``), K5
 and K6 (``lk_block``, ``lk_v2``) share this module's checks and launcher,
 and K8 its checks.
 
@@ -25,6 +27,15 @@ launches, in a CUDA graph six nodes (PERF.md). ``finish`` stays the
 definition that the plain versions apply; the kernel does the same float
 add and compares, so its outputs are bit for bit those of its delta
 finished here.
+
+Under ``torch.func.vmap`` (``patch.transformed()``) the wrappers of K3 and
+K4 call their ``torch.library`` custom ops (``ops/library.py``:
+``svo::lk_level_cell``, ``svo::lk_level_v1``), whose implementations are the
+routes above and whose batch rules call the batched entries
+(``level_track_v1_batched``, and K3's in ``lk_cell``): S sequences are one
+launch of the kernel with a sequence axis (counted once), and on the CPU
+the plain version once per sequence. A call with ``stats`` (the probes')
+is not vmapped.
 """
 from __future__ import annotations
 
@@ -123,40 +134,93 @@ def check_launch(device: torch.device, win: int, smem: int) -> None:
                          f"more than the {_SMEM_LIMIT} B a CTA can hold")
 
 
-def launch(entry: str, img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
+def launch(entry: str, counter, img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
            pts: torch.Tensor, guess: torch.Tensor, win: int, iters: int, eps: float,
            min_eig: float, pad: int, active: torch.Tensor | None,
            stats: dict | None, search_radius: float, smem: int | None = None):
     """Launch an LK level kernel (K3-K6) on CUDA tensors through the lean
-    path (``native.entry``, the raw current stream); with N = 0 it launches
-    nothing and returns empty outputs. The kernel finishes the level: it
-    returns (flow (N, 2) = guess + delta, ok (N,) bool: the gate and the
+    path (``native.entry``, the raw current stream) and add one to
+    ``counter.launches``; with N = 0 or B = 0 it launches and counts nothing
+    and returns empty outputs.
+
+    The inputs are one level pair ((Hp, Wp) levels, (N, 2) points and
+    guesses, an (N,) mask or None) or B pairs on a sequence axis ((B, Hp,
+    Wp), (B, N, 2), (B, N)). K3's and K4's ``entry`` is their batched C entry
+    (name ending ``_batched``: it takes B after N), B = 1 for one pair, so
+    both routes and the ops' batch rules share this launch; K5's and K6's
+    entries take one pair. The kernel finishes the level: it returns (flow
+    (..., N, 2) = guess + delta, ok (..., N) bool: the gate and the
     ``search_radius`` test). ``smem`` is the kernel's shared memory per CTA
     (K3/K4's by default). ``stats``, if given, receives each point's
     iterations and window reloads."""
     smem = _smem_bytes(win) if smem is None else smem
     check_launch(img_prev_pad.device, win, smem)
-    n = pts.shape[0]
-    flow = pts.new_empty((n, 2))
-    ok = pts.new_empty(n, dtype=torch.bool)
-    counts = None if stats is None else pts.new_empty((n, 2), dtype=torch.int32)
+    if pts.dim() == 2:  # unpacked shapes: torch.Size arithmetic costs host time
+        (n, _), b = pts.shape, 1
+        shape, ok = (n, 2), pts.new_empty(n, dtype=torch.bool)
+    else:
+        b, n, _ = pts.shape
+        shape, ok = (b, n, 2), pts.new_empty((b, n), dtype=torch.bool)
+    flow = pts.new_empty(shape)
+    counts = None if stats is None else pts.new_empty(shape, dtype=torch.int32)
     if stats is not None:
-        stats["iters"], stats["reloads"] = counts[:, 0], counts[:, 1]
-    if n == 0:
+        stats["iters"], stats["reloads"] = counts[..., 0], counts[..., 1]
+    if n == 0 or b == 0:
         return flow, ok
     prev, nxt = img_prev_pad.contiguous(), img_next_pad.contiguous()
     pts, guess = pts.contiguous(), guess.contiguous()
     act = None if active is None else active.contiguous().data_ptr()
-    hp, wp = prev.shape
+    *_, hp, wp = prev.shape
+    seq = (n, b) if entry.endswith("_batched") else (n,)
     index = prev.get_device()
     err = native.entry(entry)(
-        prev.data_ptr(), nxt.data_ptr(), hp, wp, pts.data_ptr(), guess.data_ptr(), act, n,
+        prev.data_ptr(), nxt.data_ptr(), hp, wp, pts.data_ptr(), guess.data_ptr(), act, *seq,
         win, iters, eps * eps, min_eig, pad, search_radius, flow.data_ptr(), ok.data_ptr(),
         None if counts is None else counts.data_ptr(), index,
         cuda_stream.current_stream(index))
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    counter.launches += 1
     return flow, ok
+
+
+def check_batched(prev: torch.Tensor, nxt: torch.Tensor, pts: torch.Tensor,
+                  guess: torch.Tensor, active: torch.Tensor | None, win: int) -> None:
+    """What K3/K4's batched entries take: (B, Hp, Wp) float32 level pairs,
+    (B, N, 2) float32 points and guesses, an optional (B, N) bool mask, all
+    on one device."""
+    b = prev.shape[0] if prev.dim() == 3 else -1
+    n = pts.shape[1] if pts.dim() == 3 else -1
+    if not (prev.dim() == 3 and prev.shape == nxt.shape
+            and pts.shape == guess.shape == (b, n, 2)
+            and prev.dtype == nxt.dtype == pts.dtype == guess.dtype == torch.float32
+            and (active is None or (active.shape == (b, n) and active.dtype == torch.bool))
+            and len({t.device for t in (prev, nxt, pts, guess)
+                     + (() if active is None else (active,))}) == 1
+            and win >= 1 and min(prev.shape[1:]) >= win + 3):
+        raise ValueError(
+            f"want (B, Hp, Wp) float32 level pairs, (B, N, 2) float32 points and guesses "
+            f"and an optional (B, N) bool mask on one device for win={win}, got "
+            f"{[(str(t.dtype), tuple(t.shape)) for t in (prev, nxt, pts, guess)]}, "
+            f"active {None if active is None else (str(active.dtype), tuple(active.shape))}")
+
+
+def batched(plain, entry: str, counter, prev: torch.Tensor, nxt: torch.Tensor,
+            pts: torch.Tensor, guess: torch.Tensor, win: int, iters: int, eps: float,
+            min_eig: float, search_radius: float, pad: int, active: torch.Tensor | None):
+    """K3 or K4 on a sequence axis (their ``*_batched`` entry points): a CPU
+    input runs the plain version ``plain`` once per sequence; a CUDA input is
+    one launch of ``entry`` (``counter`` counts it once)."""
+    check_batched(prev, nxt, pts, guess, active, win)
+    if prev.device.type == "cpu":
+        outs = [plain(prev[b], nxt[b], pts[b], guess[b], win, iters, eps, min_eig,
+                      search_radius, pad, None if active is None else active[b])
+                for b in range(prev.shape[0])]
+        if not outs:
+            return pts.new_empty(pts.shape), pts.new_empty(pts.shape[:2], dtype=torch.bool)
+        return torch.stack([f for f, _ in outs]), torch.stack([o for _, o in outs])
+    return launch(entry, counter, prev, nxt, pts, guess, win, iters, eps, min_eig, pad, active,
+                  None, search_radius)
 
 
 def reload_log(corners: list, owners: list, pts: torch.Tensor) -> dict:
@@ -239,15 +303,29 @@ def level_track_v1(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
     Returns: (flow (N, 2) = guess + found delta, ok (N,) bool).
     """
     check_inputs(img_prev_pad, img_next_pad, pts, guess, active, win)
+    if stats is None and patch.transformed():
+        return torch.ops.svo.lk_level_v1(img_prev_pad, img_next_pad, pts, guess, win, iters,
+                                         float(eps), float(min_eig), float(search_radius),
+                                         pad, active)
     if img_prev_pad.device.type == "cpu":
         return level_track_v1_reference(img_prev_pad, img_next_pad, pts, guess, win,
                                         iters, eps, min_eig, search_radius, pad,
                                         active, stats)
-    out = launch("svo_lk_level_v1", img_prev_pad, img_next_pad, pts, guess, win, iters,
-                 eps, min_eig, pad, active, stats, search_radius)
-    if len(pts):
-        level_track_v1.launches += 1
-    return out
+    return launch("svo_lk_level_v1_batched", level_track_v1, img_prev_pad, img_next_pad, pts,
+                  guess, win, iters, eps, min_eig, pad, active, stats, search_radius)
+
+
+def level_track_v1_batched(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
+                           pts: torch.Tensor, guess: torch.Tensor, win: int = 21,
+                           iters: int = 30, eps: float = 0.01, min_eig: float = 1e-4,
+                           search_radius: int = 6, pad: int = 0,
+                           active: torch.Tensor | None = None):
+    """K4 on a sequence axis: (B, Hp, Wp) level pairs, (B, N, 2) points and
+    guesses, an optional (B, N) mask -> (flow (B, N, 2), ok (B, N)), sequence
+    b tracked on pair b. One launch of ``svo_lk_level_v1_batched`` on CUDA."""
+    return batched(level_track_v1_reference, "svo_lk_level_v1_batched", level_track_v1,
+                   img_prev_pad, img_next_pad, pts, guess, win, iters, eps, min_eig,
+                   search_radius, pad, active)
 
 
 level_track_v1.launches = 0

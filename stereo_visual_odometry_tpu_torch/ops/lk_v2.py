@@ -55,12 +55,9 @@ def level_track_v2(img_prev_pad: torch.Tensor, img_next_pad: torch.Tensor,
     if img_prev_pad.device.type == "cpu":
         return level_track_v2_reference(img_prev_pad, img_next_pad, pts, guess, win,
                                         iters, eps, min_eig, search_radius, pad, stats)
-    out = lk_v1.launch("svo_lk_level_v2", img_prev_pad, img_next_pad, pts, guess, win,
-                       iters, eps, min_eig, pad, None, stats, search_radius,
-                       smem=lk_block.iter_smem_bytes(win))
-    if len(pts):
-        level_track_v2.launches += 1
-    return out
+    return lk_v1.launch("svo_lk_level_v2", level_track_v2, img_prev_pad, img_next_pad, pts,
+                        guess, win, iters, eps, min_eig, pad, None, stats, search_radius,
+                        smem=lk_block.iter_smem_bytes(win))
 
 
 level_track_v2.launches = 0

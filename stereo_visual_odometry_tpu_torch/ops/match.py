@@ -34,10 +34,9 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor,
 
     Invalid rows/cols get the sentinel ``_BIG`` so they never match.
     """
-    d = torch.zeros((desc_a.shape[0], desc_b.shape[0]), dtype=torch.int32,
-                    device=desc_a.device)
-    for w in range(desc_a.shape[1]):
-        d += popcount_u32(desc_a[:, w, None] ^ desc_b[None, :, w])
+    d = popcount_u32(desc_a[:, 0, None] ^ desc_b[None, :, 0])
+    for w in range(1, desc_a.shape[1]):  # out of place: vmap batches the sum
+        d = d + popcount_u32(desc_a[:, w, None] ^ desc_b[None, :, w])
     if valid_a is not None:
         d = torch.where(valid_a[:, None], d, _BIG)
     if valid_b is not None:

@@ -54,14 +54,23 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # eps^2, min_eig, pad, search radius, flow (guess + delta), ok (bool), stats
 # (or null), device, stream.
 _LK_LEVEL = [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _P, _P, _P, _I, _P]
+# K3/K4 on a sequence axis: the same with the batch B after n; every pointer
+# then addresses B contiguous per-sequence blocks.
+_LK_LEVEL_BATCHED = _LK_LEVEL[:8] + [_I] + _LK_LEVEL[8:]
 # C entry points of csrc/: name -> argtypes (all return a cudaError_t as int).
 _SIGNATURES = {
     # img, hp, wp, corners, n, Sh, Sw, out, device, stream
     "svo_extract_windows_int": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P],
+    # B images, hp, wp, B x n corners, n, B, Sh, Sw, out, device, stream
+    "svo_extract_windows_int_batched": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P],
     # img, h, w (unpadded), centers, n, P, pad, out, device, stream
     "svo_extract_patches": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _P],
+    # B images, h, w, B x n centers, n, B, P, pad, out, device, stream
+    "svo_extract_patches_batched": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _I, _P],
     "svo_lk_level_cell": _LK_LEVEL,
     "svo_lk_level_v1": _LK_LEVEL,
+    "svo_lk_level_cell_batched": _LK_LEVEL_BATCHED,
+    "svo_lk_level_v1_batched": _LK_LEVEL_BATCHED,
     "svo_lk_level_block": _LK_LEVEL,
     "svo_lk_level_v2": _LK_LEVEL,
     # prev, next, hp, wp, pts, guess (or null: zero), n, win, iters, eps^2,

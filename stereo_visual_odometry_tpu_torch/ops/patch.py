@@ -22,6 +22,20 @@ takes the lean path (``native.entry``, resolved once, and
 ``cuda_stream.current_stream``, the raw current stream): the wrappers run
 inside a CUDA graph capture unchanged.
 
+Under ``torch.func.vmap`` (``transformed()``) a wrapper calls its
+``torch.library`` custom op instead (``ops/library.py``:
+``svo::extract_windows_int``, ``svo::extract_patches``), whose
+implementations are the two routes above and whose batch rule calls the
+batched entry (``extract_windows_int_batched``, ``extract_patches_batched``):
+S sequences are one launch of the kernel with a sequence axis (one launch
+counted), and on the CPU the plain version once per sequence. Every CUDA
+route goes through one launcher per kernel (``launch_windows``,
+``launch_patches``), which calls the batched C entry, with B = 1 for one
+image; the B = 1 C entries stay for the probes' bare timing. Outside a
+transform the wrapper takes its route directly: through the op, every
+eager call paid the dispatcher's host time too (K1 back to back 20.8 ->
+41.4 us on the H100's host; PERF.md section 6).
+
 The JAX wrappers' BLK=8 point padding and Mosaic alignment pads are not
 needed here; any N works.
 """
@@ -86,23 +100,72 @@ def extract_windows_int(img_pad: torch.Tensor, corner_rc: torch.Tensor,
             and corner_rc.is_contiguous() and 0 < sh <= img_pad.shape[0]
             and 0 < sw <= img_pad.shape[1]):
         _reject(img_pad, corner_rc, S)
+    if transformed():
+        return torch.ops.svo.extract_windows_int(img_pad, corner_rc, sh, sw)
     if not img_pad.is_cuda:
         if img_pad.device.type != "cpu":
             raise ValueError(f"unsupported device {img_pad.device}")
-        return extract_windows_int_reference(img_pad, corner_rc, S)
-    hp, wp = img_pad.shape
-    n = corner_rc.shape[0]
-    out = img_pad.new_empty((n, sh, sw))
-    if n == 0:
+        return extract_windows_int_reference(img_pad, corner_rc, (sh, sw))
+    return launch_windows(img_pad, corner_rc, sh, sw)
+
+
+def transformed() -> bool:
+    """Whether a functorch transform (``torch.func.vmap``) is active: the
+    wrappers then go through their custom ops, whose batch rules see the
+    real (S, ...) tensors. ``torch.autograd.Function`` asks the same."""
+    return torch._C._are_functorch_transforms_active()
+
+
+def launch_windows(imgs: torch.Tensor, corners: torch.Tensor, sh: int,
+                   sw: int) -> torch.Tensor:
+    """K1's launch, the one CUDA route of the wrapper, of its op and of the
+    op's batch rule: contiguous (Hp, Wp) or (B, Hp, Wp) images and (N, 2) or
+    (B, N, 2) corners -> (N, Sh, Sw) or (B, N, Sh, Sw), one launch of the
+    batched entry (B = 1 for one image), counted once. Nothing launches for
+    N = 0 or B = 0."""
+    if imgs.dim() == 2:  # unpacked shapes: torch.Size arithmetic costs host time
+        (hp, wp), b, n = imgs.shape, 1, corners.shape[0]
+        out = imgs.new_empty((n, sh, sw))
+    else:
+        (b, hp, wp), n = imgs.shape, corners.shape[1]
+        out = imgs.new_empty((b, n, sh, sw))
+    if n == 0 or b == 0:
         return out
-    index = img_pad.get_device()
-    err = native.entry("svo_extract_windows_int")(
-        img_pad.data_ptr(), hp, wp, corner_rc.data_ptr(), n, sh, sw, out.data_ptr(),
-        index, cuda_stream.current_stream(index))
+    index = imgs.get_device()
+    err = native.entry("svo_extract_windows_int_batched")(
+        imgs.data_ptr(), hp, wp, corners.data_ptr(), n, b, sh, sw, out.data_ptr(), index,
+        cuda_stream.current_stream(index))
     if err != 0:
         raise RuntimeError(f"extract_windows_int launch failed: cudaError {err}")
     extract_windows_int.launches += 1
     return out
+
+
+def extract_windows_int_batched(imgs: torch.Tensor, corners: torch.Tensor,
+                                S) -> torch.Tensor:
+    """K1 on a sequence axis: (B, Hp, Wp) float32 images + (B, N, 2) int32
+    corners -> (B, N, Sh, Sw), window n of sequence b read from image b. A
+    CUDA input is one launch of the batched entry (counted once); a CPU input
+    runs the plain version once per sequence."""
+    sh, sw = _window_shape(S)
+    if not (imgs.dtype == _F32 and corners.dtype == _I32 and imgs.dim() == 3
+            and corners.dim() == 3 and corners.shape[0] == imgs.shape[0]
+            and corners.shape[2] == 2 and corners.device == imgs.device
+            and 0 < sh <= imgs.shape[1] and 0 < sw <= imgs.shape[2]):
+        raise ValueError(f"want (B, Hp, Wp) float32 images and (B, N, 2) int32 corners "
+                         f"on one device for S={S}, got {imgs.dtype} {tuple(imgs.shape)} "
+                         f"and {corners.dtype} {tuple(corners.shape)}")
+    if imgs.device.type == "cpu":
+        return _stack([extract_windows_int_reference(i, c, (sh, sw))
+                       for i, c in zip(imgs, corners)], (0, corners.shape[1], sh, sw), imgs)
+    if imgs.device.type != "cuda":
+        raise ValueError(f"unsupported device {imgs.device}")
+    return launch_windows(imgs.contiguous(), corners.contiguous(), sh, sw)
+
+
+def _stack(parts: list, empty_shape: tuple, like: torch.Tensor) -> torch.Tensor:
+    """``torch.stack(parts)``, or an empty (0, ...) tensor for no parts."""
+    return torch.stack(parts) if parts else like.new_empty(empty_shape)
 
 
 extract_windows_int.launches = 0
@@ -218,24 +281,59 @@ def extract_patches(img: torch.Tensor, centers_xy: torch.Tensor, P: int) -> torc
             and centers_xy.device == img.device and 1 <= P <= MAX_PATCH
             and P < min(img.shape) + 2 * pad):
         _reject_patches(img, centers_xy, P)
+    if transformed():
+        return torch.ops.svo.extract_patches(img, centers_xy, P)
     if not img.is_cuda:
         if img.device.type != "cpu":
             raise ValueError(f"unsupported device {img.device}")
         return extract_patches_clamped(img, centers_xy, P)
-    img, centers_xy = img.contiguous(), centers_xy.contiguous()
-    h, w = img.shape
-    n = centers_xy.shape[0]
-    out = img.new_empty((n, P, P))
-    if n == 0:
+    return launch_patches(img, centers_xy, P)
+
+
+def launch_patches(imgs: torch.Tensor, centers: torch.Tensor, P: int) -> torch.Tensor:
+    """K2's launch, the one CUDA route of the wrapper, of its op and of the
+    op's batch rule: (H, W) or (B, H, W) images and (N, 2) or (B, N, 2)
+    centres -> (N, P, P) or (B, N, P, P), one launch of the batched entry
+    (B = 1 for one image), counted once. Nothing launches for N = 0 or
+    B = 0."""
+    imgs, centers = imgs.contiguous(), centers.contiguous()
+    if imgs.dim() == 2:
+        (h, w), b, n = imgs.shape, 1, centers.shape[0]
+        out = imgs.new_empty((n, P, P))
+    else:
+        (b, h, w), n = imgs.shape, centers.shape[1]
+        out = imgs.new_empty((b, n, P, P))
+    if n == 0 or b == 0:
         return out
-    index = img.get_device()
-    err = native.entry("svo_extract_patches")(
-        img.data_ptr(), h, w, centers_xy.data_ptr(), n, P, pad, out.data_ptr(), index,
+    index = imgs.get_device()
+    err = native.entry("svo_extract_patches_batched")(
+        imgs.data_ptr(), h, w, centers.data_ptr(), n, b, P, P // 2 + 2, out.data_ptr(), index,
         cuda_stream.current_stream(index))
     if err != 0:
         raise RuntimeError(f"extract_patches launch failed: cudaError {err}")
     extract_patches.launches += 1
     return out
+
+
+def extract_patches_batched(imgs: torch.Tensor, centers: torch.Tensor, P: int) -> torch.Tensor:
+    """K2 on a sequence axis: (B, H, W) float32 images + (B, N, 2) float32
+    [x, y] centres -> (B, N, P, P), patch n of sequence b from image b. A CUDA
+    input is one launch of the batched entry (counted once); a CPU input runs
+    the plain version once per sequence."""
+    pad = P // 2 + 2
+    if not (imgs.dtype == _F32 and centers.dtype == _F32 and imgs.dim() == 3
+            and centers.dim() == 3 and centers.shape[0] == imgs.shape[0]
+            and centers.shape[2] == 2 and centers.device == imgs.device
+            and 1 <= P <= MAX_PATCH and P < min(imgs.shape[1:]) + 2 * pad):
+        raise ValueError(f"want (B, H, W) float32 images and (B, N, 2) float32 centres "
+                         f"on one device for P={P}, got {imgs.dtype} {tuple(imgs.shape)} "
+                         f"and {centers.dtype} {tuple(centers.shape)}")
+    if imgs.device.type == "cpu":
+        return _stack([extract_patches_clamped(i, c, P) for i, c in zip(imgs, centers)],
+                      (0, centers.shape[1], P, P), imgs)
+    if imgs.device.type != "cuda":
+        raise ValueError(f"unsupported device {imgs.device}")
+    return launch_patches(imgs, centers, P)
 
 
 extract_patches.launches = 0

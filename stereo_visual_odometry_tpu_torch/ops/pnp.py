@@ -120,12 +120,16 @@ def gauss_newton_pose(cam: Pinhole, T0: torch.Tensor, pts3d: torch.Tensor,
 
 
 def draw_uniforms(num_hypotheses: int, generator: torch.Generator | None = None,
-                  dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+                  dtype: torch.dtype = torch.float32, device=None,
+                  batch: int | None = None) -> torch.Tensor:
     """The (num_hypotheses, 6) uniforms in [0, 1) that ``ransac_pnp`` draws
     when it is given no ``u``; a caller that draws them outside the step
     (``models/step_graph.py``) calls this, so both routes take the same
-    values from ``generator`` in the same order."""
-    return torch.rand((num_hypotheses, MIN_SAMPLE), generator=generator, dtype=dtype,
+    values from ``generator`` in the same order. ``batch``: one frame's
+    draws for that many sequences, (batch, num_hypotheses, 6), in one call
+    (``parallel/``)."""
+    lead = () if batch is None else (batch,)
+    return torch.rand(lead + (num_hypotheses, MIN_SAMPLE), generator=generator, dtype=dtype,
                       device=device)
 
 

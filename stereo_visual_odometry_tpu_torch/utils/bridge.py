@@ -43,12 +43,14 @@ def state_from_jax(state_np: dict, device=None) -> dict:
     torch.Generator. An LK state carries its prior as the JAX one holds it:
     ``dmap`` (sweep), ``disp_grid`` (disparity grid) or neither
     (``lk_predictive=False``); a state with persistent tracks its
-    ``track_id``, ``track_age`` and ``next_id`` (int32)."""
+    ``track_id``, ``track_age`` and ``next_id`` (int32). A vmapped JAX
+    state (every leaf with a leading sequence axis S) gives the batched
+    state of ``parallel/sequences.py``, S-leading too."""
     to_f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
     state = {
-        "status": torch.tensor(int(state_np["status"]), dtype=torch.int32,
+        "status": torch.tensor(np.asarray(state_np["status"]), dtype=torch.int32,
                                device=device),
-        "n_detected": torch.tensor(int(state_np["n_detected"]), dtype=torch.int64,
+        "n_detected": torch.tensor(np.asarray(state_np["n_detected"]), dtype=torch.int64,
                                    device=device),
     }
     if "feat_l" in state_np:  # ORB

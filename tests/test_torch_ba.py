@@ -223,14 +223,3 @@ def test_ba_properties(name):
         np.testing.assert_allclose(out["poses"].numpy()[:2], p0[:2], atol=1e-6)
     else:
         assert e1.mean() < check, e1.mean()
-
-
-@pytest.mark.parametrize("hook", [dict(reduce_tree=lambda t: t), dict(schur_reduce=True)])
-def test_distributed_hooks_raise(hook):
-    """The all-reduce hooks keep the JAX signature; a value other than the
-    default (one device) is a later slice."""
-    jcam, _, p0, x0, obs = _problem()
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ba._solve_phases(_cam(jcam), _t(p0), _t(x0), _t(obs["obs_kf"]), _t(obs["obs_lm"]),
-                         _t(obs["obs_uv"]), _t(obs["obs_w"]), 2, 1, 2.0, 1e-3, False, None,
-                         **hook)

@@ -747,6 +747,88 @@ def test_k8_call_is_one_kernel(label):
     assert len(device_work) == 1 and "lk_block_cell_kernel" in device_work[0], device_work
 
 
+# ---- slice 4's batched entries (their one-kernel test with the others) ---- #
+
+def _batched_inputs(B=3, seed=0):
+    """B textured level pairs at LK level 0's padded shape, (B, N, 2) points
+    inside, guesses within 1.5 px, a quarter inactive; other images and
+    points per sequence."""
+    rng = np.random.default_rng(seed)
+    hp, wp, pad, n = 408, 1408, 12, 1024
+    prev = np.stack([_textured(rng, hp, wp) for _ in range(B)])
+    nxt = np.roll(prev, (-1, 2), axis=(1, 2))
+    pts = (rng.random((B, n, 2)) * [wp - 2 * pad - 1, hp - 2 * pad - 1]).astype(np.float32)
+    guess = rng.uniform(-1.5, 1.5, (B, n, 2)).astype(np.float32)
+    active = rng.random((B, n)) > 0.25
+    corners = np.stack([rng.integers(0, hp - 24, (B, n)), rng.integers(0, wp - 24, (B, n))],
+                       -1).astype(np.int32)
+    centers = (rng.random((B, 445, 2)) * [wp - 1, hp - 1]).astype(np.float32)
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    return {k: cuda(v) for k, v in dict(prev=prev, nxt=nxt, pts=pts, guess=guess,
+                                        active=active, corners=corners,
+                                        centers=centers).items()}, pad
+
+
+# name -> (the batched call, the B = 1 wrapper call of sequence b, its counter)
+BATCHED = {
+    "K1": (lambda x, p: patch.extract_windows_int_batched(x["prev"], x["corners"], 24),
+           lambda x, p, b: patch.extract_windows_int(x["prev"][b], x["corners"][b], 24),
+           patch.extract_windows_int),
+    "K2": (lambda x, p: patch.extract_patches_batched(x["prev"], x["centers"], 39),
+           lambda x, p, b: patch.extract_patches(x["prev"][b], x["centers"][b], 39),
+           patch.extract_patches),
+    "K3": (lambda x, p: lk_cell.level_track_cell_batched(
+               x["prev"], x["nxt"], x["pts"], x["guess"], pad=p, active=x["active"]),
+           lambda x, p, b: lk_cell.level_track_cell(x["prev"][b], x["nxt"][b], x["pts"][b],
+                                                    x["guess"][b], pad=p,
+                                                    active=x["active"][b]),
+           lk_cell.level_track_cell),
+    "K4": (lambda x, p: lk_v1.level_track_v1_batched(
+               x["prev"], x["nxt"], x["pts"], x["guess"], pad=p, active=x["active"]),
+           lambda x, p, b: lk_v1.level_track_v1(x["prev"][b], x["nxt"][b], x["pts"][b],
+                                                x["guess"][b], pad=p, active=x["active"][b]),
+           lk_v1.level_track_v1),
+}
+
+
+def _graph_node_types(call) -> list:
+    """The node types (``CUgraphNodeType``: 0 a kernel) of a CUDA graph that
+    captures one ``call`` after an eager warm-up: the device work the call
+    does, read from the graph itself (``cuGraphGetNodes``), so it does not
+    depend on what the profiler records late in a process."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()  # the build and the first launch
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        call()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    return types
+
+
+@pytest.mark.parametrize("name", list(BATCHED))
+def test_batched_entry_is_one_kernel(name):
+    """A batched call (B = 3) is one CUDA kernel and no other device work:
+    a graph that captures it holds one node, a kernel, wherever the test
+    runs in its process."""
+    need_cuda()
+    x, pad = _batched_inputs()
+    batched = BATCHED[name][0]
+    assert _graph_node_types(lambda: batched(x, pad)) == [0]
+
+
 def test_k6_k8_in_a_cuda_graph_match_eager():
     """Captured in a CUDA graph, K6 (with statistics and without) and K8's
     four variants give the eager outputs bit for bit, also after the inputs
@@ -1133,3 +1215,149 @@ def test_system_backend_composes_onto_the_corrected_pose(graph):
     assert checked >= 5
     assert "ba" in sys_.metrics[-1]
     np.testing.assert_allclose(sys_.state["T_wc"].cpu().numpy(), traj[-1].astype(np.float32))
+
+
+# ---- slice 4: the sequence axis, the batched step graph, NCCL -------------- #
+
+@pytest.mark.parametrize("name", list(BATCHED))
+def test_batched_entry_equals_b1_calls(name):
+    """A batched call at B = 3 is one launch counted and equals the three B =
+    1 calls bit for bit: the same per-point arithmetic, on its own
+    sequence's image (one device op: ``test_batched_entry_is_one_kernel``)."""
+    need_cuda()
+    x, pad = _batched_inputs()
+    batched, single, counter = BATCHED[name]
+    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)
+    before = counter.launches
+    got = as_tuple(batched(x, pad))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    for b in range(3):
+        for g, w in zip(got, as_tuple(single(x, pad, b)), strict=True):
+            assert torch.equal(g[b], w)
+
+
+@pytest.mark.parametrize("name", ["K1", "K3"])
+def test_batched_wrapper_under_vmap_is_one_launch(name):
+    """The wrapper under ``torch.func.vmap`` goes through its op's batch rule:
+    one launch for the three sequences, the batched entry's outputs."""
+    need_cuda()
+    x, pad = _batched_inputs()
+    batched, single, counter = BATCHED[name]
+    if name == "K1":
+        fn = lambda img, c: patch.extract_windows_int(img, c, 24)
+        args = (x["prev"], x["corners"])
+    else:
+        fn = lambda a, b, p, g, m: lk_cell.level_track_cell(a, b, p, g, pad=pad, active=m)
+        args = tuple(x[k] for k in ("prev", "nxt", "pts", "guess", "active"))
+    before = counter.launches
+    got = torch.func.vmap(fn)(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = batched(x, pad)
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w)
+
+
+def _batched_run(vo_kw, S, n_frames=5, graph=True):
+    """S synthetic sequences through ``run_chunk_scan`` on cuda, the batched
+    step replayed from its graph or run eagerly; returns (state, metrics,
+    the graph or None)."""
+    from stereo_visual_odometry_tpu_torch.parallel import sequences
+    from stereo_visual_odometry_tpu_torch.utils.config import rig_from_config
+    seqs = [synthetic.render_sequence(n_frames=n_frames, h=vo_kw.get("height", 192),
+                                      w=vo_kw.get("width", 256), fx=300.0, seed=s)
+            for s in range(S)]
+    rp = seqs[0]["rig"]
+    cam = CameraConfig(fx=300.0, fy=300.0, cx=rp["cx"], cy=rp["cy"], baseline=rp["baseline"])
+    vo = VOConfig(**dict(dict(height=192, width=256, max_features=256, num_hypotheses=128,
+                              min_features_track=8, min_inlier_rate=0.3), **vo_kw))
+    init, step, _ = sequences.make_batched_frontend(vo, rig_from_config(cam, device="cuda"))
+    il = torch.tensor(np.stack([s["images_l"] for s in seqs]), device="cuda")
+    ir = torch.tensor(np.stack([s["images_r"] for s in seqs]), device="cuda")
+    u = torch.rand(S, n_frames - 1, vo.num_hypotheses, 6, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(5))
+    state = init(il[:, 0], ir[:, 0])
+    state, m = sequences.run_chunk_scan(step, state, il[:, 1:], ir[:, 1:], u, graph=graph)
+    return state, m, (step.graph(S) if graph else None)
+
+
+@pytest.mark.parametrize("vo_kw", [dict(), dict(lk_kernel="cell"), dict(lk_kernel="v1"),
+                                   dict(mode="orb", height=128, width=320, orb_levels=4)],
+                         ids=["dense", "cell", "v1", "orb"])
+def test_batched_graph_replay_equals_eager_vmapped_step(vo_kw):
+    """``run_chunk_scan`` replaying the batched step graph against the same
+    chunk through the eager vmapped step: outputs and state bit for bit (the
+    same kernels on the same inputs and draws)."""
+    need_cuda()
+    s_g, m_g, _ = _batched_run(vo_kw, 3)
+    s_e, m_e, _ = _batched_run(vo_kw, 3, graph=False)
+    for k in m_g:
+        assert torch.equal(m_g[k], m_e[k]), k
+    assert torch.equal(s_g["T_wc"], s_e["T_wc"])
+    assert bool(m_g["accept"][-1].all())
+
+
+def test_batched_graph_launches_per_replay_as_unbatched():
+    """K1 per batched replay at S = 4 equals S = 1's (27 on the dense path):
+    the batch rule launches once for all sequences."""
+    need_cuda()
+    counts = {}
+    for S in (1, 4):
+        _, _, graph = _batched_run({}, S, n_frames=3)
+        counts[S] = graph.per_replay
+    assert counts[1] == counts[4] == {"extract_windows_int": 27}, counts
+
+
+def test_distributed_solve_on_nccl_world_size_one():
+    """``dist_ba`` on NCCL at world size 1 (a HashStore) against
+    ``bundle_adjust`` on the card, with
+    ``test_bundle_adjust_on_cuda_matches_cpu``'s tolerances."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.models import ba
+    from stereo_visual_odometry_tpu_torch.ops.camera import Pinhole
+    from stereo_visual_odometry_tpu_torch.parallel import dist_ba, multihost
+    from stereo_visual_odometry_tpu_torch.probes import multihost_demo
+    multihost.initialize(world_size=1, rank=0, backend="nccl")
+    try:
+        cam_p, poses_gt, _, table, p0, x0 = multihost_demo.problem(1)
+        t = lambda a: torch.as_tensor(np.asarray(a), device="cuda")
+        cam = Pinhole.create(*cam_p, device="cuda")
+        solve = dist_ba.make_distributed_ba(cam, None, n_kf=len(p0), n_lm=len(x0),
+                                            prune_px=8.0)
+        got = solve(t(p0), t(x0), *(t(a) for a in table))
+        want = ba.bundle_adjust(cam, t(p0), t(x0), *(t(a) for a in table), n_iters=10,
+                                n_fixed=1, prune_px=8.0)
+    finally:
+        torch.distributed.destroy_process_group()
+    np.testing.assert_allclose(got["poses"].cpu().numpy(), want["poses"].cpu().numpy(),
+                               atol=5e-3, rtol=0)
+    np.testing.assert_allclose(got["points"].cpu().numpy(), want["points"].cpu().numpy(),
+                               atol=3e-3, rtol=3e-3)
+    for k in ("cost_initial", "cost_final"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4)
+    assert torch.equal(got["obs_w"] > 0, want["obs_w"] > 0)
+    assert float(np.abs(got["poses"].cpu().numpy() - poses_gt).max()) < 0.02
+
+
+def test_evaluate_batch_defaults_to_cuda():
+    """No device given: the card (the trajectories come back, the batched
+    step graph was captured on cuda)."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.parallel import evaluate, sequences
+    from stereo_visual_odometry_tpu_torch.utils.config import rig_from_config
+    seq = synthetic.render_sequence(n_frames=4, h=192, w=256, fx=300.0)
+    rp = seq["rig"]
+    cam = CameraConfig(fx=300.0, fy=300.0, cx=rp["cx"], cy=rp["cy"], baseline=rp["baseline"])
+    vo = VOConfig(height=192, width=256, max_features=256, num_hypotheses=128,
+                  min_features_track=8, min_inlier_rate=0.3)
+    il = np.stack([seq["images_l"]] * 2)
+    ir = np.stack([seq["images_r"]] * 2)
+    sequences.clear()
+    rig = rig_from_config(cam, device="cuda")
+    out = evaluate.evaluate_batch(il, ir, np.array([4, 3]), vo, rig, chunk=2)
+    assert [t.shape for t in out["trajectories"]] == [(4, 4, 4), (3, 4, 4)]
+    step = sequences.batched_frontend(vo, rig, 2)[1]
+    assert step.device.type == "cuda" and step.graph(2).per_replay
+    assert min(out["accept_rate"]) >= 0.5

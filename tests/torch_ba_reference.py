@@ -1,7 +1,7 @@
 """Reference numbers for the BA backend: the JAX package and the port on the
 CPU, frontend-only against the backend with and without marginalization.
 
-    JAX_PLATFORMS=cpu python tests/torch_ba_reference.py CASE [jax|port_xla|port_dense]
+    JAX_PLATFORMS=cpu python tests/torch_ba_reference.py CASE [jax|port_xla|port_dense] [SEED]
 
 CASE ``drifty``: the drift sequence of the JAX package's own
 ``tests/test_backend.py::test_ba_improves_drifty_trajectory``: 100 frames
@@ -17,7 +17,17 @@ CASE ``orb_bench``: ORB with persistent tracks on the 49 bench frames of
 with ``BackendConfig(window=6, kf_every=4)``, the path of phase 17 that
 the JAX bench never ran (``jax`` or ``port_dense``).
 
-Each package draws its own RANSAC samples. Prints one JSON line: per pass
+CASE ``lk_bench``: LK on the bench scene of ``chip_smoke.py`` phases 6
+and 16 (seed 3, 9000 landmarks, 1.1 m/frame, 49 frames) at half resolution
+(188x620 padded to 192x640, fx 359.428, 512 features: a full-size run is a
+job for the card, not for a shared CPU), frontend-only, without and with
+persistent tracks: ``jax`` (its CPU default tracker, the XLA formulation),
+``port_xla`` (the same tracker) or ``port_dense``. The port's dense tracker
+on the card loses ATE with the tracks at full size (PERF.md section 6); this
+says whether the JAX package does too.
+
+Each package draws its own RANSAC samples, from ``RunConfig.seed`` (SEED,
+default 0). Prints one JSON line: per pass
 the ATE not aligned (as the JAX tests and bench) and aligned.
 """
 import json
@@ -46,7 +56,7 @@ def _modules(which):
     return BackendConfig, VOConfig, System, CameraConfig, RunConfig, {"device": "cpu"}
 
 
-def main(case: str, which: str) -> None:
+def main(case: str, which: str, seed: int = 0) -> None:
     BackendConfig, VOConfig, System, CameraConfig, RunConfig, kw = _modules(which)
     if case == "drifty":
         seq = synthetic.render_sequence(n_frames=100, h=256, w=320, fx=300.0, speed=1.0,
@@ -61,6 +71,17 @@ def main(case: str, which: str) -> None:
                       persistent_tracks=True,
                       lk_backend="xla" if which == "port_xla" else "auto")
         window = dict(window=6, kf_every=3, max_landmarks=512, max_obs=4096)
+    elif case == "lk_bench":
+        h, w, fx = 188, 620, 718.856 / 2
+        seq = synthetic.render_sequence(n_frames=49, h=h, w=w, fx=fx, baseline=0.537,
+                                        n_points=9000, speed=1.1, seed=3)
+        pad = lambda a: np.pad(a, ((0, 0), (0, 192 - h), (0, 640 - w)), mode="edge")
+        frames = list(zip(pad(seq["images_l"]), pad(seq["images_r"])))
+        cam = CameraConfig(fx=fx, fy=fx, cx=w / 2, cy=h / 2, baseline=0.537)
+        lk = dict(height=192, width=640, max_features=512,
+                  lk_backend="xla" if which == "port_xla" else "auto")
+        passes = [(label, VOConfig(persistent_tracks=on, **lk), None)
+                  for label, on in (("tracks_off", False), ("tracks_on", True))]
     else:
         seq = synthetic.render_sequence(n_frames=49, h=376, w=1241, fx=718.856,
                                         baseline=0.537, n_points=9000, speed=1.1, seed=3)
@@ -70,18 +91,21 @@ def main(case: str, which: str) -> None:
         vo = VOConfig(mode="orb", height=384, width=1280, max_features=2048,
                       persistent_tracks=True)
         window = dict(window=6, kf_every=4)
-    cfg = RunConfig(camera=cam, vo=vo)
+    if case != "lk_bench":
+        passes = [(label, vo, bcfg) for label, bcfg in (
+            ("frontend_only", None), ("ba_marg", BackendConfig(**window)),
+            ("ba_drop_oldest", BackendConfig(**window, marginalize=False)))]
     out = {}
-    for label, bcfg in (("frontend_only", None), ("ba_marg", BackendConfig(**window)),
-                        ("ba_drop_oldest", BackendConfig(**window, marginalize=False))):
-        sys_ = System(cfg, backend_cfg=bcfg, **kw)
+    for label, vo, bcfg in passes:
+        sys_ = System(RunConfig(camera=cam, vo=vo, seed=seed), backend_cfg=bcfg, **kw)
         traj = sys_.run(frames)
         out[label] = {"ate": trajectory.ate_rmse(traj, seq["poses_gt"], align=False),
                       "ate_aligned": trajectory.ate_rmse(traj, seq["poses_gt"]),
                       "solves": sum("ba" in m for m in sys_.metrics)}
-    print(json.dumps({case: {which: out}}))
+    print(json.dumps({case: {which: out, "seed": seed}}))
 
 
 if __name__ == "__main__":
     torch.set_num_threads(3)
-    main(sys.argv[1], sys.argv[2] if len(sys.argv) > 2 else "port_dense")
+    main(sys.argv[1], sys.argv[2] if len(sys.argv) > 2 else "port_dense",
+         int(sys.argv[3]) if len(sys.argv) > 3 else 0)

@@ -66,11 +66,27 @@ def jax_draws(n_steps: int, num_hypotheses: int, seed: int = 0) -> list[np.ndarr
     (PRNGKey(seed) -> split for init -> split per step in the frontend,
     ``pnp.py:186``), to inject into the port's steps."""
     _, k = jax.random.split(jax.random.PRNGKey(seed))
+    return jax_key_draws(k, n_steps, num_hypotheses)
+
+
+def jax_key_draws(key, n_steps: int, num_hypotheses: int) -> list[np.ndarray]:
+    """The RANSAC uniforms of ``n_steps`` steps of a JAX frontend whose state
+    holds ``key``: each step splits it (``models/frontend.py:282``) and
+    draws from the sub-key."""
     draws = []
     for _ in range(n_steps):
-        k, sub = jax.random.split(k)
+        key, sub = jax.random.split(key)
         draws.append(np.array(jax.random.uniform(sub, (num_hypotheses, 6))))
     return draws
+
+
+def jax_batch_draws(n_steps: int, num_hypotheses: int, n_seq: int,
+                    seed: int = 0) -> np.ndarray:
+    """The (n_seq, n_steps, num_hypotheses, 6) uniforms of a vmapped JAX
+    frontend initialised with ``split(PRNGKey(seed), n_seq)``
+    (``parallel/evaluate.py:75``): sequence s draws from its own key."""
+    keys = jax.random.split(jax.random.PRNGKey(seed), n_seq)
+    return np.stack([np.stack(jax_key_draws(k, n_steps, num_hypotheses)) for k in keys])
 
 
 def textured(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
