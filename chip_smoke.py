@@ -3,9 +3,10 @@
 on one NVIDIA GPU, end to end through its ``System``: LK on each level
 tracker and prior of ``VOConfig``, ORB, persistent tracks and the
 sliding-window BA backend; then S sequences in one batched step graph
-through ``parallel.evaluate`` and the distributed BA on NCCL.
+through ``parallel.evaluate`` and the distributed BA on NCCL; then the
+command line, checkpoint/resume and the online feed on a KITTI directory.
 
-    python3 chip_smoke.py    # the nineteen phases below, on cuda:0
+    python3 chip_smoke.py    # the twenty phases below, on cuda:0
 
 Phases (each prints one line; any failure exits non-zero):
   1. device: needs ``torch.cuda.is_available()`` (no CPU path); prints
@@ -102,7 +103,8 @@ Phases (each prints one line; any failure exits non-zero):
      tracked point and the staged share; and K8's split (template, one
      reload round, the rest of a full call);
  15. eager against graph: each slice of phases 6-9, on its first 16
-     frames, run by ``System`` with ``graph=False`` and then with the
+     frames (8 for the three kernel-free branches of phase 9, the slowest
+     eager steps), run by ``System`` with ``graph=False`` and then with the
      graph, in turns in this call: both
      ms/frame, ATE, accept and n_tracked, which must be equal, and whether
      the trajectories are equal bit for bit; then per path one profiled
@@ -145,11 +147,39 @@ Phases (each prints one line; any failure exits non-zero):
      B = 4 in a graph against 4 x B = 1 beside 4 x the bound; (d) the
      distributed solve on NCCL at world size 1 against ``bundle_adjust``
      (poses 5e-3, landmarks 3e-3 relative, costs 1e-4);
- 19. the kernel report.
+ 19. slice 5 on phase 6's 49 frames as a KITTI directory (native 376x1241,
+     8-bit PNGs written with zlib, a pose file, a reference-format YAML
+     with the bench camera): first what the machine has (PIL, matplotlib,
+     libpng's header, the native loader's build), the decoder the dataset
+     picks and its ms per pair; K1 and K2 against their plain versions on
+     the calls an eager step makes at the command line's 384x1248 (LK and
+     ORB); (a) ``cli.main`` in process, LK: static shape (384, 1248), ATE <
+     0.05 m, accept >= 0.95, K1 1 + 27 x 48, 49 poses written, the
+     trajectory bit for bit ``System.run``'s on the decoded frames;
+     (b) ``--chunked 16`` bit for bit ``run_chunked``'s, ``--mode orb``
+     (2048 features) with phase 7's bounds and K1, K2 16 per frame,
+     ``--batch`` over two directories (per sequence ATE < 0.05 m),
+     ``--ba --window 6 --kf-every 4`` (>= 2 solves, ATE aligned < 1.5 x the
+     JAX package's on the same frames on the CPU), ``--dump-overlays
+     --every 10`` (the trajectory bit for bit (a)'s, the overlay arrays on
+     the host, 4 PNGs where matplotlib imports, none without); (c) one
+     ``python -m stereo_visual_odometry_tpu_torch.cli`` process on 8 frames
+     (exit 0, ``ATE=``); (d) checkpoint/resume over 14 frames with
+     persistent tracks, saved after 9 (after the first window slide of
+     ``BackendConfig(window=3, kf_every=2)``), a fresh ``System`` loads and
+     runs the rest: frontend-only bit for bit, with the backend poses within
+     5e-3 (the solve sums with atomics) and the same keyframes; (e) the
+     online feed, 16 pairs pushed with jitter inside slop, either side
+     first: 16 results in order, none dropped, the worker's first step
+     captures the graph, K1 1 + 27 x 15, the trajectory bit for bit
+     ``System.run``'s; a burst into ``maxlen=2`` drops and never blocks;
+     after ``close()`` no worker is alive;
+ 20. the kernel report.
 The launch counts hold without a reinit; each slice's run sets every
 count to 0 just before ``run_chunked`` (``run`` in phase 17,
-``evaluate_batch`` in phase 18) and reads them just after. The second-to-last line is the kernel report (JSON), the
-last line ``{"ok": true, "device": {...}}``.
+``evaluate_batch`` in phase 18, ``cli.main`` and the online feed in phase
+19) and reads them just after. The second-to-last line is the kernel
+report (JSON), the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -177,6 +207,7 @@ LK_LEVELS_PER_STEP = 6     # level calls per step: stereo legs 1 level, temporal
 LK_BRANCHES = [("xla", dict(lk_backend="xla"), 7), ("no_sweep", dict(lk_sweep=False), 45),
                ("not_predictive", dict(lk_predictive=False), 61)]
 BRANCH_FRAMES = 16
+EAGER_BRANCH_FRAMES = 8  # phase 15's depth for the kernel-free branches
 LK_PADDED = [(408, 1408), (216, 768)]  # LK levels 0 and 1 at 384x1280, padded
 WIN, PAD = 21, 12
 # ORB at 384x1280, 8 levels of scale 1.2, 2048 features: each level's image
@@ -199,6 +230,16 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+_SAID = [time.perf_counter()]
+
+
+def say(line: str) -> None:
+    """Print a phase's line with the seconds since the previous line."""
+    now = time.perf_counter()
+    print(f"{line} [{now - _SAID[0]:.1f} s]", flush=True)
+    _SAID[0] = now
 
 
 def lk_level_bound(torch, stats, corners, pts, active, hp, wp, kernel, io=None):
@@ -563,7 +604,7 @@ def persistent_phase(mods, cam, frames, poses_gt) -> dict:
                      f"equal to the graph's bit for bit: {same}")
         del graphed, eager
         torch.cuda.empty_cache()
-    print("[16/19] " + "; ".join(lines))
+    say("[16/20] " + "; ".join(lines))
     return launches
 
 
@@ -599,7 +640,7 @@ def ba_leg_phase(mods, cam, frames, poses_gt, smi) -> dict:
     walls = {k: [1e3 * r["wall_s"] for r in leg[k]["solves"]]
              for k in ("ba_marg", "ba_drop_oldest")}
     k1 = [launches[f"ba_leg_{k}"]["extract_windows_int"] for k in leg]
-    print(f"[17/19] BA leg passes: ATE {fe:.4f} / {mg:.4f} / {dr:.4f} m, solves {n_solves}, "
+    say(f"[17/20] BA leg passes: ATE {fe:.4f} / {mg:.4f} / {dr:.4f} m, solves {n_solves}, "
           f"K1 launches {k1}")
     prof = profile_solve(torch, mods["profiling"], be_marg, mods["ba"])
     del be_marg
@@ -616,7 +657,7 @@ def ba_leg_phase(mods, cam, frames, poses_gt, smi) -> dict:
     del r
     med = lambda v: float(np.median(v)) if v else float("nan")
     orb_wall = med([1e3 * r["wall_s"] for r in orb_solves])
-    print(f"[17/19] BA leg on {smi}, System.run on cuda, {BA_FRAMES} frames 376x1241 "
+    say(f"[17/20] BA leg on {smi}, System.run on cuda, {BA_FRAMES} frames 376x1241 "
           f"padded to {H}x{W}, LK {N_POINTS} features, persistent tracks; ATE (not aligned) "
           f"frontend-only {fe:.4f} m, BA+marg {mg:.4f} m, drop-oldest {dr:.4f} m; accept "
           + ", ".join(f"{k} {v['accept']:.3f}" for k, v in leg.items())
@@ -842,18 +883,18 @@ def slice4_phase(mods, cam, il, ir, poses_gt, bounds) -> tuple[dict, dict]:
     drive("ORB-batched-S2", VOConfig(mode="orb", height=H, width=W, max_features=ORB_FEATURES),
           BRANCH_FRAMES, 2, dict(zero, extract_windows_int=ORB_LAUNCHES_PER_FRAME * BRANCH_FRAMES,
                                  extract_patches=ORB_LAUNCHES_PER_FRAME * BRANCH_FRAMES), 0.07)
-    print("[18/19] slice 4, S sequences in one batched step graph (the same frames per "
+    say("[18/20] slice 4, S sequences in one batched step graph (the same frames per "
           "sequence, draws of their own): " + "; ".join(lines) + "; " + nodes)
 
     entries = batched_entries(mods, bounds)
-    print("[18/19] the batched entries (B = 3 sequences, other images per sequence) against "
+    say("[18/20] the batched entries (B = 3 sequences, other images per sequence) against "
           "their plain versions (K1, K2 exact; K3, K4 phase 5's criteria) and against B = 1 "
           "calls (bit for bit), one launch each; at B = 4 in a graph against 4 x B = 1: "
           + "; ".join(f"{k} ({v['entry']}) max err {v['max_abs_err']:.2e}, B=4 "
                       f"{1e3 * v['graph_ms_b4']:.2f} us against 4xB=1 "
                       f"{1e3 * v['graph_ms_4x1']:.2f} us, bound {1e3 * v['bound_ms_b4']:.3f} us"
                       for k, v in entries.items()))
-    print("[18/19] " + dist_solve(mods))
+    say("[18/20] " + dist_solve(mods))
     return launches, dict(entries, s4=s4, s1=s1)
 
 
@@ -898,6 +939,449 @@ def dist_solve(mods) -> str:
             + "; ".join(parts))
 
 
+SLICE5_RAW = (376, 1241)  # the bench frames' native size, as KITTI's
+SLICE5_HW = (384, 1248)   # utils/kitti.static_shape_for(376, 1241): multiples of 32
+# The BA bound of (b): 1.5 x the JAX package's aligned ATE on these frames on
+# the CPU (``tests/torch_ba_reference.py cli_ba jax``), as phase 17's ORB.
+CLI_BA_JAX_ATE = 0.14498387788178257  # 11 solves; frontend-only 0.0243
+CKPT_FRAMES, CKPT_SAVE = 14, 9  # the fourth keyframe (frame 7) slides the window
+ONLINE_FRAMES, BURST = 16, 8
+
+
+def write_png(path, img) -> None:
+    """An 8-bit grey PNG, written with zlib alone (the card's machine may
+    lack PIL)."""
+    import struct
+    import zlib
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+    h, w = img.shape
+    rows = b"".join(b"\x00" + img[r].tobytes() for r in range(h))  # filter 0 per row
+    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n"
+                           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                           + chunk(b"IDAT", zlib.compress(rows, 6)) + chunk(b"IEND", b""))
+
+
+def write_kitti_dir(trajectory, root, imgs_l, imgs_r, poses_gt) -> None:
+    """``root/image_0``, ``root/image_1`` (8-bit PNGs) and ``root/poses.txt``."""
+    for sub, imgs in (("image_0", imgs_l), ("image_1", imgs_r)):
+        (root / sub).mkdir(parents=True)
+        for i, img in enumerate(imgs):
+            write_png(root / sub / f"{i:06d}.png", img)
+    trajectory.save_kitti(str(root / "poses.txt"), poses_gt)
+
+
+def bench_yaml(path, mode="lk", features=N_POINTS) -> str:
+    """A reference-format config: the bench camera and ``VOConfig``'s
+    defaults (the reader's own default draws 512 hypotheses)."""
+    track = "LK_stereof2f_pnp" if mode == "lk" else "ORB_stereof2f_pnp"
+    Path(path).write_text(
+        "%YAML:1.0\ncamera1.fx: 718.856\ncamera1.fy: 718.856\n"
+        f"camera1.cx: {SLICE5_RAW[1] / 2}\ncamera1.cy: {SLICE5_RAW[0] / 2}\n"
+        f"t_lr0: -0.537\ntrack_mode: {track}\nnFeatures: {features}\n"
+        "iterationsCount: 256\n")
+    return str(path)
+
+
+def machine_has(loader) -> tuple[str, dict]:
+    """What the machine offers the dataset: PIL, matplotlib, libpng's header
+    for g++, and the native loader's build."""
+    import importlib.util
+    has = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "matplotlib")}
+    try:
+        png_h = subprocess.run(["g++", "-E", "-x", "c++", "-"], input="#include <png.h>\n",
+                               capture_output=True, text=True, timeout=60).returncode == 0
+    except FileNotFoundError:
+        png_h = "no g++"
+    try:
+        loader.get_lib()
+        built = f"built ({loader.library_path().name})"
+    except (RuntimeError, OSError) as e:
+        built = "not built: ..." + " ".join(str(e).split())[-160:]
+    return (f"PIL {has['PIL']}, matplotlib {has['matplotlib']}, png.h {png_h}, the native "
+            f"loader {built}"), has
+
+
+def record_patch_calls(torch, patch, run) -> dict:
+    """The arguments of every K1 and K2 wrapper call ``run()`` makes, cloned
+    (the step reaches the wrappers through the ``patch`` module)."""
+    calls = {"extract_windows_int": [], "extract_patches": []}
+    orig = {name: getattr(patch, name) for name in calls}
+
+    def recorder(name):
+        def call(*args):
+            calls[name].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+            return orig[name](*args)
+        call.launches = 0  # the wrapper counts on the module's name, here this one
+        return call
+    for name in calls:
+        setattr(patch, name, recorder(name))
+    try:
+        run()
+    finally:
+        for name, fn in orig.items():
+            setattr(patch, name, fn)
+    return calls
+
+
+def check_patch_calls(torch, patch, calls) -> tuple[float, float, list, list]:
+    """K1 and K2 against their plain versions on recorded calls: (K1's max
+    abs err, K2's, K1's (Hp, Wp, S, N), K2's (h, w, P, N))."""
+    k1_err = k2_err = 0.0
+    k1_shapes, k2_shapes = set(), set()
+    for img, corners, S in calls["extract_windows_int"]:
+        got = patch.extract_windows_int(img, corners, S)
+        want = patch.extract_windows_int_reference(img, corners, S)
+        if len(corners):
+            k1_err = max(k1_err, float((got - want).abs().max()))
+        k1_shapes.add((*img.shape, S if isinstance(S, int) else tuple(S), len(corners)))
+    for img, xy, P in calls["extract_patches"]:
+        got = patch.extract_patches(img, xy, P)
+        p_pad = P // 2 + 2
+        want = patch.extract_patches_reference(patch.pad_edge(img, p_pad, p_pad, p_pad, p_pad),
+                                               xy, P, p_pad)
+        plain = patch.extract_patches_clamped(img, xy, P)
+        if len(xy):
+            k2_err = max(k2_err, float((got - want).abs().max()),
+                         float((got - plain).abs().max()))
+        k2_shapes.add((*img.shape, P, len(xy)))
+    torch.cuda.synchronize()
+    return k1_err, k2_err, sorted(k1_shapes), sorted(k2_shapes)
+
+
+def drain(vo, n=None, timeout=120.0) -> list:
+    """Poll an online feed until ``n`` results came (or, without ``n``,
+    until none comes for a second)."""
+    out, deadline = [], time.perf_counter() + timeout
+    while (n is None or len(out) < n) and time.perf_counter() < deadline:
+        r = vo.poll(timeout=1.0)
+        if r is None and n is None:
+            break
+        if r is not None:
+            out.append(r)
+    return out
+
+
+def slice5_phase(mods, cam, il, ir, poses_gt) -> tuple[dict, dict]:
+    """Phase 19: the command line, checkpoint/resume and the online feed on
+    phase 6's frames written as a KITTI directory. Returns (each path's
+    launches, K1's and K2's errors against their plain versions on the
+    calls of one step at the command line's shape)."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+    np, torch, kernels = mods["np"], mods["torch"], mods["kernels"]
+    system_mod, trajectory, patch = mods["system_mod"], mods["trajectory"], mods["patch"]
+    VOConfig, RunConfig, BackendConfig = mods["VOConfig"], mods["RunConfig"], mods["BackendConfig"]
+    from stereo_visual_odometry_tpu_torch import cli
+    from stereo_visual_odometry_tpu_torch.models.online import OnlineVO
+    from stereo_visual_odometry_tpu_torch.native import loader
+    from stereo_visual_odometry_tpu_torch.parallel import sequences
+    from stereo_visual_odometry_tpu_torch.utils import checkpoint, kitti
+    System = system_mod.System
+    zero = dict.fromkeys(kernels, 0)
+    k1_lk = dict(zero, extract_windows_int=1 + LK_LAUNCHES_PER_STEP * (N_FRAMES - 1))
+    launches = {}
+    h, w = SLICE5_RAW
+    raw_l, raw_r = il[:, :h, :w].astype(np.uint8), ir[:, :h, :w].astype(np.uint8)
+    pad = lambda a: kitti.pad_to(a, *SLICE5_HW)
+    lk_cfg = RunConfig(camera=cam, vo=VOConfig(height=SLICE5_HW[0], width=SLICE5_HW[1],
+                                               max_features=N_POINTS))
+    ate = lambda traj: trajectory.ate_rmse(traj, poses_gt[:len(traj)])
+    tmp = Path(tempfile.mkdtemp(prefix="svo_slice5_"))
+    try:
+        seq, seq2 = tmp / "seq00", tmp / "seq01"
+        write_kitti_dir(trajectory, seq, raw_l, raw_r, poses_gt)
+        shutil.copytree(seq, seq2)
+        gt = str(seq / "poses.txt")
+        lk_yaml = bench_yaml(tmp / "lk.yaml")
+        orb_yaml = bench_yaml(tmp / "orb.yaml", "orb", ORB_FEATURES)
+        has_line, has = machine_has(loader)
+        ds = kitti.KittiStereoDataset(str(seq), static_hw=SLICE5_HW)
+        t0 = time.perf_counter()
+        frames = [ds[i] for i in range(len(ds))]
+        decode_ms = 1e3 * (time.perf_counter() - t0) / len(ds)
+        check(len(frames) == N_FRAMES and all(
+            np.array_equal(l, pad(a)) and np.array_equal(r, pad(b))
+            for (l, r), a, b in zip(frames, raw_l, raw_r)),
+              f"the {ds.decoder} decoder's frames differ from the written bytes")
+        say(f"[19/20] slice 5 on a KITTI directory of {N_FRAMES} frames {h}x{w} (8-bit PNGs "
+            f"by zlib): {has_line}; the dataset decodes with {ds.decoder!r}, "
+            f"{decode_ms:.2f} ms per pair (padded to {SLICE5_HW}), frames equal to the "
+            "written bytes")
+
+        # K1 and K2 on the calls one eager step makes at the CLI's shape.
+        errs, parts = {}, []
+        orb_cfg = RunConfig(camera=cam, vo=VOConfig(mode="orb", height=SLICE5_HW[0],
+                                                    width=SLICE5_HW[1],
+                                                    max_features=ORB_FEATURES))
+        for tag, cfg in (("LK", lk_cfg), ("ORB", orb_cfg)):
+            calls = record_patch_calls(torch, patch, lambda cfg=cfg: System(
+                cfg, device="cuda", graph=False).run(frames[:2]))
+            k1e, k2e, k1s, k2s = check_patch_calls(torch, patch, calls)
+            errs[tag] = (k1e, k2e)
+            check(k1e == 0.0 and k2e == 0.0,
+                  f"{tag} at {SLICE5_HW}: K1 max abs err {k1e}, K2 {k2e} (tolerance 0)")
+            parts.append(f"{tag}: {len(calls['extract_windows_int'])} K1 calls on (Hp, Wp, S, "
+                         f"N) {k1s}, {len(calls['extract_patches'])} K2 calls on (h, w, P, "
+                         f"N) {k2s}")
+        k1_err = max(e[0] for e in errs.values())
+        say(f"[19/20] K1 and K2 vs plain on the calls of one eager tracked step at "
+            f"{SLICE5_HW}: " + "; ".join(parts) + f": max abs err K1 {k1_err}, K2 "
+            f"{errs['ORB'][1]} (tolerance 0)")
+
+        def run_cli(tag, args):
+            """``cli.main(args)`` in process, its stdout kept, the launch counts
+            set to 0 just before and read just after; returns (each System
+            it ran with its trajectory, the printed lines, wall s)."""
+            made = []
+            orig = {n: getattr(System, n) for n in ("run", "run_chunked")}
+
+            def spy(name):
+                def call(self, *a, **kw):
+                    traj = orig[name](self, *a, **kw)
+                    made.append((self, traj))
+                    return traj
+                return call
+            for name in orig:
+                setattr(System, name, spy(name))
+            out = io.StringIO()
+            reset_launches(kernels)
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    rc = cli.main(args)
+            finally:
+                for name, fn in orig.items():
+                    setattr(System, name, fn)
+            wall = time.perf_counter() - t0
+            launches[tag] = {name: fn.launches for name, fn in kernels.items()}
+            printed = out.getvalue().strip().splitlines()
+            check(rc == 0, f"{tag}: cli.main returned {rc}")
+            return made, printed, wall
+
+        def counted(tag):
+            return {k: v for k, v in launches[tag].items() if v}
+
+        def plain_cfg(sys_):  # the CLI's config, writing nothing
+            return dataclasses.replace(sys_.config, trajectory_out="", overlay_dir="")
+
+        # (a) the CLI, LK ------------------------------------------------------
+        out_file, plot = tmp / "traj.txt", tmp / "traj.png"
+        made, printed, wall = run_cli("cli_lk", [lk_yaml, "--dataset", str(seq), "--out",
+                                                 str(out_file), "--gt", gt, "--plot", str(plot)])
+        (sys_a, traj_a), = made
+        hw = (sys_a.vo_cfg.height, sys_a.vo_cfg.width)
+        check(hw == SLICE5_HW, f"the CLI sized the step {hw}, want {SLICE5_HW}")
+        check(sys_a.device.type == "cuda" and sys_a.graph is not None,
+              "the CLI's System runs off the card's step graph")
+        a_ate, a_acc = ate(traj_a), sys_a.summary()["accept_rate"]
+        check(a_ate < 0.05 and a_acc >= 0.95, f"CLI LK: ATE {a_ate} m (< 0.05), accept {a_acc}")
+        check(launches["cli_lk"] == k1_lk, f"CLI LK launches {counted('cli_lk')}, want "
+              f"{k1_lk['extract_windows_int']} K1")
+        written = trajectory.load_kitti(str(out_file))
+        check(len(written) == N_FRAMES and plot.stat().st_size > 0,
+              f"CLI wrote {len(written)} poses, plot {plot.stat().st_size} B")
+        ref_a = System(plain_cfg(sys_a), device="cuda").run(frames)
+        same_a = bool(np.array_equal(traj_a, ref_a))
+        check(same_a, "CLI LK differs from System.run on the decoded frames: "
+              f"{np.abs(traj_a - ref_a).max()}")
+        steady = 1e3 * float(np.median([m["time_s"] for m in sys_a.metrics[2:]]))
+        lines = [f"(a) cli.main LK, {wall:.2f} s (the graph's warm-up and capture "
+                 f"{sys_a.graph.capture_s:.2f} s, then {steady:.2f} ms per frame, median, "
+                 f"decode overlapped): {' | '.join(printed)}; static shape {hw}, "
+                 f"ATE {a_ate:.4f} m, accept {a_acc:.3f}, launches {counted('cli_lk')}, "
+                 f"{len(written)} poses written, plot {plot.stat().st_size} B, equal to "
+                 f"System.run bit for bit: {same_a}"]
+
+        # (b) the other modes ---------------------------------------------------
+        made, printed, wall = run_cli("cli_chunked", [lk_yaml, "--dataset", str(seq),
+                                                      "--chunked", "16", "--gt", gt])
+        (sys_c, traj_c), = made
+        ref_c = System(plain_cfg(sys_c), device="cuda").run_chunked(frames, chunk=16)
+        same_c = bool(np.array_equal(traj_c, ref_c))
+        check(same_c and launches["cli_chunked"] == k1_lk,
+              f"--chunked 16: equal to run_chunked {same_c}, launches {counted('cli_chunked')}")
+        lines.append(f"--chunked 16, {wall:.2f} s: {' | '.join(printed)}; equal to "
+                     f"System.run_chunked(chunk=16) bit for bit: {same_c}, launches "
+                     f"{counted('cli_chunked')}")
+
+        made, printed, wall = run_cli("cli_orb", [orb_yaml, "--dataset", str(seq), "--mode",
+                                                  "orb", "--gt", gt])
+        (sys_o, traj_o), = made
+        o_ate, o_acc = ate(traj_o), sys_o.summary()["accept_rate"]
+        want = dict(zero, extract_windows_int=ORB_LAUNCHES_PER_FRAME * N_FRAMES,
+                    extract_patches=ORB_LAUNCHES_PER_FRAME * N_FRAMES)
+        check(sys_o.vo_cfg.mode == "orb" and sys_o.vo_cfg.max_features == ORB_FEATURES,
+              f"--mode orb ran {sys_o.vo_cfg.mode} at {sys_o.vo_cfg.max_features}")
+        check(o_ate < 0.07 and o_acc >= 0.95 and launches["cli_orb"] == want,
+              f"--mode orb: ATE {o_ate} m (< 0.07), accept {o_acc}, launches "
+              f"{counted('cli_orb')}")
+        lines.append(f"--mode orb ({ORB_FEATURES} features), {wall:.2f} s: "
+                     f"{' | '.join(printed)}; ATE {o_ate:.4f} m, accept {o_acc:.3f}, launches "
+                     f"{counted('cli_orb')}")
+
+        btraj = tmp / "btraj"
+        made, printed, wall = run_cli("cli_batch", [lk_yaml, "--batch", str(seq), str(seq2),
+                                                    "--batch-gt", gt, gt, "--out", str(btraj)])
+        b_ates = [ate(trajectory.load_kitti(f"{btraj}.{s:02d}")) for s in range(2)]
+        check(sum("ATE=" in ln for ln in printed) == 2 and max(b_ates) < 0.05
+              and launches["cli_batch"] == k1_lk,
+              f"--batch: ATE {b_ates} m (< 0.05), launches {counted('cli_batch')}")
+        sequences.clear()
+        lines.append(f"--batch (2 directories, S = 2), {wall:.2f} s: {' | '.join(printed)}; "
+                     f"ATE from the written trajectories {b_ates[0]:.4f} / {b_ates[1]:.4f} m, "
+                     f"launches {counted('cli_batch')} (1 + 27 x 48 for the batch)")
+
+        made, printed, wall = run_cli("cli_ba", [lk_yaml, "--dataset", str(seq), "--ba",
+                                                 "--window", "6", "--kf-every", "4",
+                                                 "--gt", gt])
+        (sys_b, traj_b), = made
+        solves = sum("ba" in m for m in sys_b.metrics)
+        ba_bound = 1.5 * CLI_BA_JAX_ATE
+        b_ate = ate(traj_b)
+        check(solves >= 2 and b_ate < ba_bound and launches["cli_ba"] == k1_lk,
+              f"--ba: {solves} solves (>= 2), ATE {b_ate} m (< {ba_bound:.4f}), launches "
+              f"{counted('cli_ba')}")
+        lines.append(f"--ba --window 6 --kf-every 4, {wall:.2f} s: {' | '.join(printed)}; "
+                     f"{solves} solves, ATE {b_ate:.4f} m aligned (bound {ba_bound:.4f}: 1.5 x "
+                     f"the JAX package's {CLI_BA_JAX_ATE}), not aligned "
+                     f"{trajectory.ate_rmse(traj_b, poses_gt, align=False):.4f} m, launches "
+                     f"{counted('cli_ba')}")
+
+        ovl = tmp / "overlays"
+        made, printed, wall = run_cli("cli_overlays", [lk_yaml, "--dataset", str(seq),
+                                                       "--dump-overlays", str(ovl),
+                                                       "--every", "10"])
+        (sys_v, traj_v), = made
+        same_v = bool(np.array_equal(traj_v, traj_a))
+        shapes = {k: (v.shape, v.dtype.name) for k, v in sys_v.metrics[10].items()
+                  if k.startswith("tracked_")}
+        want_shapes = {"tracked_prev": ((N_POINTS, 2), "float32"),
+                       "tracked_cur": ((N_POINTS, 2), "float32"),
+                       "tracked_valid": ((N_POINTS,), "bool")}
+        pngs = sorted(p.name for p in ovl.glob("*.png"))
+        want_pngs = [f"tracks_{i:06d}.png" for i in range(10, N_FRAMES, 10)]
+        check(same_v and shapes == want_shapes and launches["cli_overlays"] == k1_lk,
+              f"--dump-overlays: equal to (a) {same_v}, arrays {shapes}, launches "
+              f"{counted('cli_overlays')}")
+        check(pngs == (want_pngs if has["matplotlib"] else []),
+              f"--dump-overlays wrote {pngs} (matplotlib {has['matplotlib']})")
+        lines.append(f"--dump-overlays --every 10, {wall:.2f} s: trajectory equal to (a)'s "
+                     f"bit for bit: {same_v}; overlay arrays on the host {shapes}; PNGs "
+                     + (f"{len(pngs)}" if has["matplotlib"] else
+                        "absent (no matplotlib: draw_tracks writes nothing, as in JAX)"))
+        say("[19/20] the command line on cuda (python -m stereo_visual_odometry_tpu_torch.cli, "
+            "in process; counts set to 0 before each call): " + "; ".join(lines))
+        del sys_a, sys_c, sys_o, sys_b, sys_v, made
+        torch.cuda.empty_cache()
+
+        # (c) the real entry point ----------------------------------------------
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "stereo_visual_odometry_tpu_torch.cli",
+                               lk_yaml, "--dataset", str(seq), "--max-frames", "8", "--gt", gt],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        sub_s = time.perf_counter() - t0
+        check(proc.returncode == 0 and "ATE=" in proc.stdout,
+              f"python -m ...cli exited {proc.returncode}: {proc.stderr[-2000:]}")
+        c_line = (f"(c) python -m stereo_visual_odometry_tpu_torch.cli --max-frames 8: exit 0 in "
+                  f"{sub_s:.1f} s: {' | '.join(proc.stdout.strip().splitlines())}")
+
+        # (d) checkpoint / resume after the first window slide -----------------
+        vo_p = dataclasses.replace(lk_cfg.vo, persistent_tracks=True)
+        ckpt, d_parts = tmp / "state.npz", []
+        for variant, bcfg in (("frontend-only", None),
+                              ("BA", BackendConfig(window=3, kf_every=2))):
+            make = lambda: System(RunConfig(camera=cam, vo=vo_p), device="cuda",
+                                  backend_cfg=bcfg)
+            straight = make()
+            for i, (l, r) in enumerate(frames[:CKPT_FRAMES]):
+                straight.step(l, r)
+                if i + 1 == CKPT_SAVE:
+                    checkpoint.save(str(ckpt), straight)
+                    prior = None if bcfg is None else straight.backend.prior
+            resumed = make()
+            resumed.step(*frames[0])
+            checkpoint.load(str(ckpt), resumed)
+            for l, r in frames[CKPT_SAVE:CKPT_FRAMES]:
+                resumed.step(l, r)
+            gap = float(np.abs(np.stack(resumed.poses) - np.stack(straight.poses)).max())
+            if bcfg is None:
+                check(gap == 0.0, f"checkpoint {variant}: resumed poses {gap} off")
+                d_parts.append(f"{variant}: poses equal bit for bit")
+            else:
+                kf = (len(resumed.backend.kf_poses), len(straight.backend.kf_poses))
+                check(prior is not None, "the save came before the first window slide")
+                check(gap <= 5e-3 and resumed.backend.frame_of_kf == straight.backend.frame_of_kf,
+                      f"checkpoint {variant}: poses {gap} off (<= 5e-3), keyframes "
+                      f"{resumed.backend.frame_of_kf} against {straight.backend.frame_of_kf}")
+                d_parts.append(f"{variant}: the prior present at the save, poses within "
+                               f"{gap:.2e} (tolerance 5e-3), keyframes {kf[0]} / {kf[1]} at "
+                               f"frames {straight.backend.frame_of_kf}")
+            del straight, resumed
+        d_line = (f"(d) checkpoint: persistent LK over {CKPT_FRAMES} frames, saved after "
+                  f"{CKPT_SAVE} and resumed in a fresh System (graph): " + "; ".join(d_parts))
+
+        # (e) the online feed ---------------------------------------------------
+        sys_e = System(lk_cfg, device="cuda")
+        vo = OnlineVO(sys_e, slop=0.02)
+        reset_launches(kernels)
+        try:
+            for i, (l, r) in enumerate(frames[:ONLINE_FRAMES]):
+                t = 0.1 * i
+                pair = [(vo.push_left, t, l), (vo.push_right, t + 0.004 * (-1) ** i, r)]
+                for push, ts, img in (pair if i % 2 else pair[::-1]):
+                    push(ts, img)
+            results = drain(vo, ONLINE_FRAMES)
+            launches["online"] = {name: fn.launches for name, fn in kernels.items()}
+        finally:
+            vo.close()
+        ts = [r["ts"] for r in results]
+        captured = sys_e.graph is not None and sys_e.graph.key is not None  # by the worker
+        ref_e = System(lk_cfg, device="cuda").run(frames[:ONLINE_FRAMES])
+        same_e = len(sys_e.poses) == ONLINE_FRAMES and bool(
+            np.array_equal(np.stack(sys_e.poses), ref_e))
+        want_e = dict(zero, extract_windows_int=1 + LK_LAUNCHES_PER_STEP * (ONLINE_FRAMES - 1))
+        check(len(results) == ONLINE_FRAMES and ts == sorted(ts) and vo.dropped == 0,
+              f"online: {len(results)} results, ts {ts}, dropped {vo.dropped}")
+        check(captured and same_e and launches["online"] == want_e
+              and not vo._worker.is_alive(),
+              f"online: graph captured {captured}, equal to System.run {same_e}, launches "
+              f"{counted('online')}, worker alive {vo._worker.is_alive()}")
+        burst = OnlineVO(sys_e, slop=0.02, maxlen=2)
+        longest = 0.0
+        try:
+            for i in range(BURST):
+                t0 = time.perf_counter()
+                burst.push_left(100.0 + i, frames[i][0])
+                burst.push_right(100.0 + i + 0.001, frames[i][1])
+                longest = max(longest, time.perf_counter() - t0)
+            got = drain(burst)
+        finally:
+            burst.close()
+        check(burst.dropped >= 1 and len(got) + burst.dropped == BURST and longest < 0.5
+              and not burst._worker.is_alive(),
+              f"online burst: {len(got)} stepped, {burst.dropped} dropped of {BURST}, longest "
+              f"push {longest * 1e3:.2f} ms, worker alive {burst._worker.is_alive()}")
+        e_line = (f"(e) OnlineVO: {ONLINE_FRAMES} pairs pushed with jitter inside slop 0.02, "
+                  f"either side first: {len(results)} results in order, dropped {vo.dropped}, "
+                  f"the graph captured on the worker ({captured}), launches "
+                  f"{counted('online')}, equal to System.run bit for bit: {same_e}; a burst "
+                  f"of {BURST} into maxlen=2: {len(got)} stepped, {burst.dropped} dropped, the "
+                  f"longest push {longest * 1e3:.3f} ms; after close() the workers alive: "
+                  f"{vo._worker.is_alive()} / {burst._worker.is_alive()}")
+        say("[19/20] " + "; ".join((c_line, d_line, e_line)))
+        del sys_e
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, {"extract_windows_int": k1_err, "extract_patches": errs["ORB"][1]}
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     t_start = time.perf_counter()
@@ -912,7 +1396,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/19] device: {kind} x{torch.cuda.device_count()}, torch "
+    say(f"[1/20] device: {kind} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, cuda {torch.version.cuda}")
     print(smi)
 
@@ -964,7 +1448,7 @@ def main() -> int:
     roll.launcher()
     bind_s = time.perf_counter() - t0
     cxx = native.extension_command("roll_binding")[0]
-    print(f"[2/19] kernel library {lib_path.name} {how} in {build_s:.2f}s; K7 binding "
+    say(f"[2/20] kernel library {lib_path.name} {how} in {build_s:.2f}s; K7 binding "
           f"{ext_path.name} {how_ext} with {cxx} (no ninja) in {bind_s:.2f}s; "
           f"ptxas: {'; '.join(ptxas)}")
 
@@ -989,7 +1473,7 @@ def main() -> int:
         check(err == 0.0, f"K1 disagrees with its plain version at {(hp, wp, S, n)}: "
               f"max abs err {err}")
         k1_err = max(k1_err, err)
-    print(f"[3/19] K1 vs plain at {len(K1_SHAPES)} LK shapes (N={N_POINTS}), the XLA "
+    say(f"[3/20] K1 vs plain at {len(K1_SHAPES)} LK shapes (N={N_POINTS}), the XLA "
           f"tracker's S=64/36 windows, {len(orb_maps)} ORB score maps (S=3, "
           f"N=budget) and N={K1_RAGGED} at S=24, (5, 7), (64, 36) ({len(k1_cases)} "
           f"cases): max abs err {k1_err} (tolerance 0: a copy)")
@@ -1018,7 +1502,7 @@ def main() -> int:
             bits_p = orb.brief_bits_from_patches(want, None)
             bit_flips += int((bits_k != bits_p).sum())
     check(bit_flips == 0, f"K2's patches give {bit_flips} other BRIEF bits")
-    print(f"[4/19] K2 vs plain (on the padded image, and the clamped plain version) at "
+    say(f"[4/20] K2 vs plain (on the padded image, and the clamped plain version) at "
           f"{len(ORB_LEVELS)} ORB level shapes (P={ORB_PATCH}, N={ORB_BUDGETS}), P=31 at "
           f"levels 0-1, and centres up to 2 px outside on all four sides at levels 0, 3, "
           f"6 for P={ORB_PATCH}/31 and N={K2_RAGGED} ({len(k2_cases)} cases): max abs err "
@@ -1051,7 +1535,7 @@ def main() -> int:
     empty = [no_points(torch, name, kernels, lk_bool, lambda name=name: lk_fn[name](
         args[0], args[1], args[2][:0], args[3][:0], pad=PAD, active=active[:0]))
         for name in ("cell", "v1")]
-    print(f"[5/19] K3 (cell) and K4 (v1) vs plain (kernel against plain), N={N_POINTS}, "
+    say(f"[5/20] K3 (cell) and K4 (v1) vs plain (kernel against plain), N={N_POINTS}, "
           f"win {WIN}, 30 iters, {int(active.sum())} active: " + "; ".join(lines)
           + f"; N = 0, empty and no launch counted: {', '.join(empty)}")
 
@@ -1069,14 +1553,14 @@ def main() -> int:
     launches = {}
     lk, launches["lk"] = run(VOConfig(**lk_vo), "LK")
     want = dict(zero, extract_windows_int=1 + LK_LAUNCHES_PER_STEP * (N_FRAMES - 1))
-    print("[6/19] " + describe_slice("LK", lk, launches["lk"], want))
+    say("[6/20] " + describe_slice("LK", lk, launches["lk"], want))
     check_slice("LK", lk, launches["lk"], want, 0.05, 0.95)
 
     orb_cfg = VOConfig(mode="orb", height=H, width=W, max_features=ORB_FEATURES)
     ob, launches["orb"] = run(orb_cfg, "ORB")
     want = dict(zero, extract_windows_int=ORB_LAUNCHES_PER_FRAME * N_FRAMES,
                 extract_patches=ORB_LAUNCHES_PER_FRAME * N_FRAMES)
-    print("[7/19] " + describe_slice("ORB", ob, launches["orb"], want))
+    say("[7/20] " + describe_slice("ORB", ob, launches["orb"], want))
     check_slice("ORB", ob, launches["orb"], want, 0.07, 0.95)
 
     # 8. The LK slice on K3 and on K4 ---------------------------------------
@@ -1089,7 +1573,7 @@ def main() -> int:
                                     want))
         check_slice(f"LK-{name}", r, launches[f"lk_{name}"], want, 0.05, 0.95)
         lines[-1] += f"; {lk['ms_frame'] / r['ms_frame']:.2f}x the dense LK ms/frame"
-    print("[8/19] " + "; ".join(lines) + f" (dense: {lk['ms_frame']:.2f} ms/frame)")
+    say("[8/20] " + "; ".join(lines) + f" (dense: {lk['ms_frame']:.2f} ms/frame)")
 
     # 9. The kernel-free LK branches on the first 16 frames -------------------
     lines = []
@@ -1102,7 +1586,7 @@ def main() -> int:
                                     BRANCH_FRAMES))
         check_slice(f"LK-{tag}", r, launches[f"lk_{tag}"], want, 0.15, 0.9,
                     ate="ate_from_1")
-    print("[9/19] " + "; ".join(lines))
+    say("[9/20] " + "; ".join(lines))
 
     # 10. K5 and K6 vs plain, and vs the K3 and K4 kernels ---------------------
     lines = []
@@ -1184,7 +1668,7 @@ def main() -> int:
         lines.append(line)
     empty = [no_points(torch, name, kernels, lk_bool, lambda name=name: lk_fn[name](
         args[0], args[1], args[2][:0], args[3][:0], pad=PAD)) for name in ("block", "v2")]
-    print(f"[10/19] K5 (block) and K6 (v2) vs plain (K3's and K4's plain versions) and "
+    say(f"[10/20] K5 (block) and K6 (v2) vs plain (K3's and K4's plain versions) and "
           f"vs the K3/K4 kernels, N={N_POINTS}, win {WIN}, 30 iters, K5 with phase 5's "
           f"mask, K6's wrapper on every point and its bare entry with the mask: "
           + "; ".join(lines)
@@ -1235,7 +1719,7 @@ def main() -> int:
             refused.append(str(e).split(",")[0])
         check(roll.roll.launches == before, "K7 counted a launch for a refused input")
     check(len(refused) == 2, f"K7 took a float64 or a 3-D input: {refused}")
-    print(f"[11/19] K7 through its binding vs plain (torch.roll) over {k7_cases} cases: axis "
+    say(f"[11/20] K7 through its binding vs plain (torch.roll) over {k7_cases} cases: axis "
           f"0 and 1, ({probe_roll.ROWS[0]}..{probe_roll.ROWS[-1]}, {probe_roll.COLS}), amounts "
           f"0, 1, 3, 7, 9 (axis 0) / 100 (axis 1), -1, the axis length and + 5, and on the "
           f"one-element kernel (37, 255) and a (128, 256) view 4 bytes off alignment: max abs "
@@ -1266,7 +1750,7 @@ def main() -> int:
     k8_node = {label: one_node(torch, profiling, f"K8 {label}",
                                lambda label=label: lk_breakdown.run_variant(label, probe_in))
                for label in lk_breakdown.VARIANTS}
-    print(f"[12/19] K8 vs plain at {tuple(probe_in['prev'].shape)}, N={len(probe_in['pts'])}: "
+    say(f"[12/20] K8 vs plain at {tuple(probe_in['prev'].shape)}, N={len(probe_in['pts'])}: "
           + ", ".join(f"{lb} relative error {k8[lb]['rel_err']:.2e} (max abs "
                       f"{k8[lb]['abs_err']:.3g})" for lb in split_labels)
           + f" (tolerance 1e-4: sums in another order); full equals K5's output bit for "
@@ -1305,7 +1789,7 @@ def main() -> int:
     probe_t = probe_block.timing_ms(probe_in)
     k8_graph = lk_breakdown.timing_ms(probe_in)
     k8_split = lk_breakdown.split(k8_graph)
-    print("[13/19] probes (launches read after each run: "
+    say("[13/20] probes (launches read after each run: "
           + ", ".join(f"{p} {({k: v for k, v in launches[p].items() if v})}"
                       for p in probe_paths) + "): "
           + "; ".join(probe_block.describe(probe_out["probe_lk_block"], probe_t))
@@ -1410,7 +1894,7 @@ def main() -> int:
                 f"{us(t['library_graph_ms'])} (max diff {t['library_max_diff']}), bound "
                 f"{b_ms * 1e3:.3f} us ({b_by}), wrapper host time {t['host_us']:.2f} us")
 
-    print("[14/19] K3-K6 (probes/lk_timing.py; graphs of "
+    say("[14/20] K3-K6 (probes/lk_timing.py; graphs of "
           f"{lk_timing.GRAPH_CALLS} calls; staged share at margins {lk_timing.MARGINS}, "
           f"shipped {lk_v1.STAGE_MARGIN}; K6's wrapper on every point, one device op "
           f"(phase 10), its kernel alone with the mask): " + "; ".join(
@@ -1426,15 +1910,15 @@ def main() -> int:
               f"(largest {us(b['kernel_graph_ms_max'])}), iterations {b['iters']}, staged "
               f"share {b['staged_share']}"
               for k, b in lkt["bench"].items()))
-    print("[14/19] host time per K1 wrapper call, us (perf_counter over "
+    say("[14/20] host time per K1 wrapper call, us (perf_counter over "
           f"{patch_timing.HOST_CALLS} calls, no sync): "
           + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
-    print("[14/19] host time per K7 call, us (the same way): "
+    say("[14/20] host time per K7 call, us (the same way): "
           + ", ".join(f"{k} {v:.3f}" for k, v in k7_host.items())
           + f"; in a graph of {patch_timing.GRAPH_CALLS} calls, in turns: one row "
           f"{us(pt['k7']['one_row_graph_ms'])} (K7's practical floor), "
           f"{patch_timing.K7_SHAPE} {us(pt['k7']['graph_ms_beside_one_row'])}")
-    print(f"[14/19] CUDA events, {patch_timing.B2B_CALLS} calls each (5 for the LK plain "
+    say(f"[14/20] CUDA events, {patch_timing.B2B_CALLS} calls each (5 for the LK plain "
           f"versions), and CUDA graphs of {patch_timing.GRAPH_CALLS} calls: "
           + patch_line(f"K1 S={S} N={N_POINTS} on {patch_timing.K1_SHAPE[:2]}", "k1",
                        k1_plain, k1_bound, k1_by, "grid_sample(nearest)") + "; "
@@ -1457,10 +1941,13 @@ def main() -> int:
 
     # 15. Eager against graph, in turns; a profiled replay per path ---------
     lines, profiles = [], []
+    branch_tags = {f"LK-{tag}" for tag, _, _ in LK_BRANCHES}
     for tag, (vo, fr, gt, chunk) in slices.items():
-        # The first BRANCH_FRAMES frames of every path keep the script's
-        # total near half its time limit, with phases 16-17.
-        fr, gt, chunk = fr[:BRANCH_FRAMES], gt[:BRANCH_FRAMES], min(chunk, 8)
+        # The first BRANCH_FRAMES frames of every path, and EAGER_BRANCH_FRAMES
+        # of the kernel-free branches (the slowest eager steps), keep the
+        # script's total near half its time limit, with phases 16-19.
+        n = EAGER_BRANCH_FRAMES if tag in branch_tags else BRANCH_FRAMES
+        fr, gt, chunk = fr[:n], gt[:n], min(chunk, n // 2)
         eager, _ = run(vo, tag, fr, gt, chunk, graph=False, keep=True)
         graphed, _ = run(vo, tag, fr, gt, chunk, keep=True)
         same = bool(np.array_equal(eager["traj"], graphed["traj"]))
@@ -1480,9 +1967,9 @@ def main() -> int:
                                      fr[-1]))
         del eager, graphed
         torch.cuda.empty_cache()  # the graph's pool
-    print("[15/19] eager against graph, System.run_chunked in turns (eager, then graph; "
+    say("[15/20] eager against graph, System.run_chunked in turns (eager, then graph; "
           "steady ms/frame after the first chunk): " + "; ".join(lines))
-    print("[15/19] one profiled step per path (eager: step_fn; graph: one replay; device "
+    say("[15/20] one profiled step per path (eager: step_fn; graph: one replay; device "
           "ops = kernels, copies and fills; idle = 1 - busy / wall): " + "; ".join(profiles))
 
     # 16-17. Slice 3: persistent tracks, the BA leg ------------------------
@@ -1506,7 +1993,13 @@ def main() -> int:
     s4_launches, s4 = slice4_phase(mods, cam, il, ir, poses_gt, bounds)
     launches.update(s4_launches)
 
-    # 19. Kernel report ---------------------------------------------------
+    # 19. Slice 5: the command line, checkpoint/resume, the online feed --------
+    s5_launches, s5_err = slice5_phase(mods, cam, il, ir, poses_gt)
+    launches.update(s5_launches)
+    k1_err, k2_err = max(k1_err, s5_err["extract_windows_int"]), max(k2_err,
+                                                                    s5_err["extract_patches"])
+
+    # 20. Kernel report ---------------------------------------------------
     src = "stereo_visual_odometry_tpu_torch/csrc/"
     by_path = lambda name: {p: ln[name] for p, ln in launches.items()}
     timed_keys = ("ms", "graph_ms", "library_ms", "library_graph_ms", "library_max_diff")
@@ -1559,7 +2052,7 @@ def main() -> int:
             entry["batched"] = s4[entry["name"]]
         entry["launches_by_path"] = by_path(entry["name"])
         entry["launches"] = sum(entry["launches_by_path"].values())
-    print(f"[19/19] kernel report and result ({time.perf_counter() - t_start:.1f} s since the "
+    say(f"[20/20] kernel report and result ({time.perf_counter() - t_start:.1f} s since the "
           "start)")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

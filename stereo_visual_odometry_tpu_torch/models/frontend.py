@@ -527,12 +527,17 @@ FRAME_KEEP = CHUNK_KEEP + ("T_wc", "status")
 # (JAX ``models/system.py:110-117``) and their ages.
 TRACK_KEEP = ("track_id", "track_xy", "track_valid", "track_age", "pts3d_cur",
               "pts3d_cur_valid", "track_xy_r", "track_stereo_valid")
+# For the overlay dump, when a ``System`` writes one: the frame's associations
+# (JAX ``models/system.py:136-148``).
+OVERLAY_KEEP = ("tracked_prev", "tracked_cur", "tracked_valid")
 
 
-def frame_outputs(state: dict, metrics: dict) -> dict:
-    """The ``FRAME_KEEP`` tensors of one step's (new state, metrics), and
-    ``TRACK_KEEP``'s with persistent tracks."""
-    keep = FRAME_KEEP + (TRACK_KEEP if "track_id" in metrics else ())
+def frame_outputs(state: dict, metrics: dict, overlays: bool = False) -> dict:
+    """The ``FRAME_KEEP`` tensors of one step's (new state, metrics),
+    ``TRACK_KEEP``'s with persistent tracks and ``OVERLAY_KEEP``'s with
+    ``overlays``."""
+    keep = (FRAME_KEEP + (TRACK_KEEP if "track_id" in metrics else ())
+            + (OVERLAY_KEEP if overlays else ()))
     return {k: metrics[k] if k in metrics else state[k] for k in keep}
 
 
@@ -560,16 +565,16 @@ def write_back(state: dict, new_state: dict) -> None:
         dst.copy_(src)
 
 
-def make_buffer_step(step_fn):
+def make_buffer_step(step_fn, overlays: bool = False):
     """The step in buffer form: ``buffer_step(state, img_l, img_r, u, out)``
     runs ``step_fn`` on the tensors it is handed (the RANSAC draws ``u``
-    included), copies the frame's ``FRAME_KEEP`` tensors into ``out`` and,
-    as its last ops, the new state into the tensors of ``state``. Built on
-    ``step_fn``, not a second copy of the pipeline."""
+    included), copies the frame's ``frame_outputs`` (with ``overlays``)
+    into ``out`` and, as its last ops, the new state into the tensors of
+    ``state``. Built on ``step_fn``, not a second copy of the pipeline."""
 
     def buffer_step(state, img_l, img_r, u, out):
         new_state, metrics = step_fn(state, img_l, img_r, u)
-        for k, v in frame_outputs(new_state, metrics).items():
+        for k, v in frame_outputs(new_state, metrics, overlays).items():
             out[k].copy_(v)
         write_back(state, new_state)
 

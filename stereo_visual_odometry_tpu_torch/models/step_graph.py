@@ -8,15 +8,16 @@ launches, each paying the host's time; replayed from a graph it is one
 
 ``StepGraph`` owns static buffers: the pair (``img_l``, ``img_r``), the
 RANSAC draws ``u``, the frontend state (``state``) and the frame's
-``frontend.FRAME_KEEP`` outputs (``out``). The caller loads a state with
-``load_state`` (the graph's state buffers are the live state: a reinit
-copies into them) and advances with ``replay``, handing it the draws (the
-caller's generator advances as the eager step's would). The first replay
-warms the buffer-form step up on a side stream, on a clone of the state
-with throwaway draws, so the kernels build and every cached constant is on
-the card before the capture; then it captures once, keyed by the
-``VOConfig``, the pair's shape and its dtype. The graph's memory pool goes
-with the object.
+``frontend.frame_outputs`` (``out``; with ``overlays``, fixed when the
+graph is built, also the overlay dump's ``OVERLAY_KEEP``). The caller
+loads a state with ``load_state`` (the graph's state buffers are the live
+state: a reinit copies into them) and advances with ``replay``, handing it
+the draws (the caller's generator advances as the eager step's would).
+The first replay warms the buffer-form step up on a side stream, on a
+clone of the state with throwaway draws, so the kernels build and every
+cached constant is on the card before the capture; then it captures once,
+keyed by the ``VOConfig``, the outputs kept, the pair's shape and its
+dtype. The graph's memory pool goes with the object.
 
 Launch counts: the kernel wrappers count in Python, so a replay counts
 nothing itself. Each counter's increase during the capture is the graph's
@@ -60,15 +61,17 @@ class StepGraph:
     """One frontend's step (``step_fn`` of ``frontend.make_frontend(cfg,
     ...)`` on ``device``) as a CUDA graph."""
 
-    def __init__(self, step_fn, cfg: frontend_mod.VOConfig, device, batch: int | None = None):
+    def __init__(self, step_fn, cfg: frontend_mod.VOConfig, device, batch: int | None = None,
+                 overlays: bool = False):
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a cuda device, got {self.device}")
         self.cfg = cfg
+        self.overlays = overlays
         self._step_fn = step_fn
-        self._buffer_step = frontend_mod.make_buffer_step(step_fn)
+        self._buffer_step = frontend_mod.make_buffer_step(step_fn, overlays)
         self.state = None
-        self.key = None  # (cfg, pair shape, pair dtype) once captured
+        self.key = None  # (cfg, overlays, pair shape, pair dtype) once captured
         self.per_replay: dict[str, int] = {}  # wrapper name -> launches per replay
         self.capture_s = 0.0  # warm-up and capture, host seconds
         self._graph = None
@@ -90,7 +93,7 @@ class StepGraph:
         if img_l.shape != img_r.shape or img_l.dtype != img_r.dtype:
             raise ValueError(f"the pair differs: {img_l.dtype} {tuple(img_l.shape)} against "
                              f"{img_r.dtype} {tuple(img_r.shape)}")
-        return (self.cfg, tuple(img_l.shape), img_l.dtype), img_l, img_r
+        return (self.cfg, self.overlays, tuple(img_l.shape), img_l.dtype), img_l, img_r
 
     def _capture(self, key, img_l, img_r) -> None:
         if self.state is None:
@@ -112,7 +115,8 @@ class StepGraph:
                 scratch = tree_map(torch.clone, self.state)
                 new_state, metrics = self._step_fn(scratch, self.img_l, self.img_r, u)
                 self.out = {k: torch.empty_like(v) for k, v in
-                            frontend_mod.frame_outputs(new_state, metrics).items()}
+                            frontend_mod.frame_outputs(new_state, metrics,
+                                                       self.overlays).items()}
                 self._buffer_step(scratch, self.img_l, self.img_r, u, self.out)
                 del scratch, new_state, metrics
             torch.cuda.current_stream(dev).wait_stream(side)
@@ -141,8 +145,8 @@ class StepGraph:
         if self._graph is None:
             self._capture(key, img_l, img_r)
         elif key != self.key:
-            raise ValueError(f"this graph was captured for a {self.key[2]} pair of shape "
-                             f"{self.key[1]}, got {key[2]} {key[1]}")
+            raise ValueError(f"this graph was captured for a {self.key[3]} pair of shape "
+                             f"{self.key[2]}, got {key[3]} {key[2]}")
         else:
             self.img_l.copy_(img_l)
             self.img_r.copy_(img_r)

@@ -10,7 +10,11 @@ few feature-starved frames, preserving the pose chain.
 the CPU with ``device="cpu"``; without a GPU, the default raises. The
 frontend is chosen by ``VOConfig.mode`` (LK or ORB); its state is opaque
 here. RANSAC draws come from a ``torch.Generator`` on the device seeded from
-``RunConfig.seed``. The overlay dump is a later slice and raises.
+``RunConfig.seed``. With ``RunConfig.overlay_dir`` set, ``step`` writes the
+frame's association overlay every ``overlay_every`` frames (not on an init
+frame; ``utils/viz.draw_tracks``), as JAX's; ``run_chunked`` writes none.
+``run_kitti`` runs the configured KITTI directory. Logs go through
+``utils/logging.get_logger``.
 
 ``backend_cfg`` adds the sliding-window BA backend (``models/backend.py``,
 JAX config 3), which needs ``persistent_tracks``: ``step`` hands it the
@@ -26,12 +30,12 @@ the generator outside the graph with the eager step's own call, so both
 routes draw the same values in the same order. ``graph=False`` runs the
 step eagerly instead: an A/B switch, like ``jax.disable_jit``, for holding
 the graph to the eager step. The CPU always runs eagerly. Each frame hands
-the host only what it consumes (``frontend.FRAME_KEEP``), in one copy
-(``utils/hostcopy.py``).
+the host only what it consumes (``frontend.frame_outputs``: the overlay's
+arrays only when it dumps overlays), in one copy (``utils/hostcopy.py``).
 """
 from __future__ import annotations
 
-import logging
+import os
 import time
 from typing import Iterable
 
@@ -45,8 +49,7 @@ from ..ops import pnp
 from ..utils import trajectory as traj_mod
 from ..utils.config import RunConfig, rig_from_config
 from ..utils.hostcopy import device_get_tree
-
-log = logging.getLogger(__name__)
+from ..utils.logging import get_logger
 
 
 class System:
@@ -61,10 +64,6 @@ class System:
         frontend_mod.check_supported(config.vo)
         if backend_cfg is not None and not config.vo.persistent_tracks:
             raise ValueError("the BA backend needs VOConfig(persistent_tracks=True)")
-        if config.overlay_dir:
-            raise NotImplementedError(
-                "overlay_dir is not ported yet: ROADMAP.md Queue 1, slice 5 "
-                "(the CLI, online feed and checkpoint)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -72,12 +71,15 @@ class System:
                 "torch.cuda.is_available() is False; pass device='cpu' to run "
                 "on the CPU")
         self.config = config
+        self.log = get_logger("models.system")
+        self._overlays = bool(config.overlay_dir)
         self.rig = rig_from_config(config.camera, device=self.device)
         self.vo_cfg = config.vo
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.init_fn, self.step_fn = frontend_mod.make_frontend(
             self.vo_cfg, self.rig, device=self.device, generator=self.generator)
-        self.graph = (step_graph.StepGraph(self.step_fn, self.vo_cfg, self.device)
+        self.graph = (step_graph.StepGraph(self.step_fn, self.vo_cfg, self.device,
+                                           overlays=self._overlays)
                       if graph and self.device.type == "cuda" else None)
         self.state = None
         self.status = frontend_mod.INITING
@@ -103,11 +105,12 @@ class System:
         self.state = state if self.graph is None else self.graph.load_state(state)
 
     def _advance(self, img_l, img_r) -> dict:
-        """One step from the live state: the frame's ``FRAME_KEEP`` tensors
-        (under the graph its output buffers, valid until the next step)."""
+        """One step from the live state: the frame's ``frame_outputs``
+        tensors (under the graph its output buffers, valid until the next
+        step)."""
         if self.graph is None:
             self.state, metrics = self.step_fn(self.state, img_l, img_r)
-            return frontend_mod.frame_outputs(self.state, metrics)
+            return frontend_mod.frame_outputs(self.state, metrics, self._overlays)
         u = pnp.draw_uniforms(self.vo_cfg.num_hypotheses, self.generator, device=self.device)
         return self.graph.replay(img_l, img_r, u)
 
@@ -146,11 +149,15 @@ class System:
             if self.status == frontend_mod.LOST:
                 self.lost_count += 1
                 if self.lost_count >= self.max_lost_before_reinit:
-                    log.warning("tracking lost %d frames; reinitializing",
-                                self.lost_count)
+                    self.log.warning("tracking lost %d frames; reinitializing",
+                                     self.lost_count)
                     self._reinit(img_l, img_r)
             else:
                 self.lost_count = 0
+            # The association overlay (the reference's displayTracking
+            # window, tracking.cpp:354-382, rendered offline).
+            if self._overlays and self.frame_idx % max(self.config.overlay_every, 1) == 0:
+                self._dump_overlay(img_l, m)
             if self.backend is not None:
                 pose = self._refine(m, pose)
         dt = time.perf_counter() - t0
@@ -161,7 +168,16 @@ class System:
         self.frame_idx += 1
         return m
 
-    step_online = step
+    step_online = step  # ``Step_ros`` equivalent: externally-fed frames.
+
+    def _dump_overlay(self, img_l, m: dict) -> None:
+        """Write this frame's association overlay PNG."""
+        from ..utils.viz import draw_tracks
+
+        os.makedirs(self.config.overlay_dir, exist_ok=True)
+        path = os.path.join(self.config.overlay_dir, f"tracks_{self.frame_idx:06d}.png")
+        draw_tracks(path, torch.as_tensor(img_l).cpu().numpy(), m["tracked_prev"],
+                    m["tracked_cur"], m["tracked_valid"])
 
     def _refine(self, m: dict, T_wc: np.ndarray) -> np.ndarray:
         """The backend's part of a tracked frame (JAX ``models/system.py:
@@ -192,7 +208,7 @@ class System:
         traj = np.stack(self.poses) if self.poses else np.zeros((0, 4, 4))
         if self.config.trajectory_out:
             traj_mod.save_kitti(self.config.trajectory_out, traj)
-            log.info("wrote %d poses to %s", len(traj), self.config.trajectory_out)
+            self.log.info("wrote %d poses to %s", len(traj), self.config.trajectory_out)
         return traj
 
     def run(self, frames: Iterable[tuple[np.ndarray, np.ndarray]],
@@ -204,8 +220,8 @@ class System:
                 break
             m = self.step(il, ir)
             if i % 50 == 0:
-                log.info("frame %d status=%d time=%.1fms", i, self.status,
-                         1e3 * m["time_s"])
+                self.log.info("frame %d status=%d time=%.1fms", i, self.status,
+                              1e3 * m["time_s"])
         return self._finish()
 
     def run_chunked(self, frames: Iterable[tuple[np.ndarray, np.ndarray]],
@@ -273,8 +289,8 @@ class System:
                                    if m["status"][t] == frontend_mod.LOST else 0)
             self.status = int(m["status"][-1])
             if self.lost_count >= self.max_lost_before_reinit:
-                log.warning("tracking lost %d frames; reinitializing (chunked)",
-                            self.lost_count)
+                self.log.warning("tracking lost %d frames; reinitializing (chunked)",
+                                 self.lost_count)
                 self._reinit(il[-1], ir[-1])
                 self.status = int(self.state["status"])
 
@@ -288,6 +304,15 @@ class System:
         flush()
         self.frame_idx = len(self.poses)
         return self._finish()
+
+    def run_kitti(self) -> np.ndarray:
+        """Run on the configured KITTI sequence directory (``run`` over its
+        frames, decoded ahead on the loader's threads)."""
+        from ..utils.kitti import KittiStereoDataset
+
+        ds = KittiStereoDataset(self.config.dataset_dir,
+                                static_hw=(self.vo_cfg.height, self.vo_cfg.width))
+        return self.run(ds.iter_prefetch(), self.config.max_frames)
 
     # ------------------------------------------------------------------ #
 

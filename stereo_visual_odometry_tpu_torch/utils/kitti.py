@@ -1,15 +1,17 @@
 """KITTI odometry dataset ingestion.
 
-Port of ``stereo_visual_odometry_tpu/utils/kitti.py`` (numpy + PIL, no
-torch needed). Replaces ``System::NextFrame_kitti`` (``reference/src/System.cpp:
+Port of ``stereo_visual_odometry_tpu/utils/kitti.py`` (numpy; the native
+loader or PIL). Replaces ``System::NextFrame_kitti`` (``reference/src/System.cpp:
 75-104``): grayscale stereo pairs from ``dataset_dir/image_0/%06d.png`` and
 ``image_1/%06d.png``. (The reference computes a 0.5x resize and then throws
 it away — ``System.cpp:93-101`` — a bug we do not reproduce; images are used
 at native resolution, padded to static shapes.)
 
-Decoding is PIL's, the JAX package's own path when its native C++ loader
-(``native/loader.py``) is absent (``kitti.py:62-68``); the port's native
-loader comes with slice 5 (ROADMAP.md Queue 1). Images are padded
+Decoding prefers the native C++ loader (``native/loader.py``: libpng and
+a threaded prefetch, built with g++ at first use) and falls back to PIL
+when it does not build, as the JAX dataset does without its loader;
+``decoder`` says which one runs ("native" or "pil"). That is a host I/O
+choice: the frames are the same bytes either way. Images are padded
 (bottom/right, edge-replicated) to the static shape the step's CUDA graph
 was captured for.
 """
@@ -19,6 +21,8 @@ import os
 from typing import Iterator
 
 import numpy as np
+
+from .logging import get_logger
 
 
 def pad_to(img: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -50,14 +54,28 @@ class KittiStereoDataset:
     (right gray), same as the reference expects (``System.cpp:80-86``).
     """
 
-    def __init__(self, root: str, static_hw: tuple[int, int] | None = None):
+    def __init__(self, root: str, static_hw: tuple[int, int] | None = None,
+                 use_native: bool = True):
         self.root = root
         self.dir_l = os.path.join(root, "image_0")
         self.dir_r = os.path.join(root, "image_1")
         if not os.path.isdir(self.dir_l):
             raise FileNotFoundError(f"no image_0/ under {root}")
         self.n_frames = len([f for f in os.listdir(self.dir_l) if f.endswith(".png")])
-        first = _decode_png(self._path(self.dir_l, 0))
+        self._native = None
+        if use_native:
+            from ..native import loader as native_loader
+
+            try:
+                native_loader.get_lib()
+                self._native = native_loader
+            except (RuntimeError, OSError) as e:  # no compiler, no libpng, no load
+                lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+                why = next((ln for ln in lines if "error" in ln), lines[-1] if lines else "")
+                get_logger("kitti").warning("native loader unavailable (%s); decoding with "
+                                            "PIL", why)
+        self.decoder = "pil" if self._native is None else "native"
+        first = self._decode(self._path(self.dir_l, 0))
         self.native_hw = first.shape
         self.static_hw = static_hw or static_shape_for(*first.shape)
 
@@ -68,15 +86,25 @@ class KittiStereoDataset:
     def __len__(self) -> int:
         return self.n_frames
 
+    def _decode(self, path: str) -> np.ndarray:
+        if self._native is not None:
+            return self._native.decode_png_gray(path)
+        return _decode_png(path)
+
     def __getitem__(self, i: int) -> tuple[np.ndarray, np.ndarray]:
         h, w = self.static_hw
-        l = _decode_png(self._path(self.dir_l, i))
-        r = _decode_png(self._path(self.dir_r, i))
+        l = self._decode(self._path(self.dir_l, i))
+        r = self._decode(self._path(self.dir_r, i))
         return pad_to(l, h, w), pad_to(r, h, w)
 
     def iter_prefetch(self, depth: int = 4) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-        """Iterate frames with background prefetching (a thread pool) so
-        decode overlaps device compute."""
+        """Iterate frames with background prefetching (the native loader's
+        threads, else a thread pool) so decode overlaps device compute."""
+        if self._native is not None:
+            paths = [(self._path(self.dir_l, i), self._path(self.dir_r, i))
+                     for i in range(self.n_frames)]
+            yield from self._native.iter_stereo_prefetch(paths, self.static_hw, depth)
+            return
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(max_workers=2) as ex:

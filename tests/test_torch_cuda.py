@@ -3,6 +3,10 @@ versions, the LK (dense and cell) and ORB slices on cuda against the
 same slices on the CPU, and the step's CUDA graph (``models/step_graph.py``)
 against the eager step.
 
+Slice 5: the command line at KITTI's shape (384x1248) counting K1, the
+online feed's worker capturing the graph, a checkpoint from the card
+loading on the CPU and back.
+
 Marked ``cuda``; each skips without a GPU (decided inside the test). This
 file imports neither JAX nor the JAX package, so it runs on a machine with
 a card and no JAX:
@@ -1361,3 +1365,130 @@ def test_evaluate_batch_defaults_to_cuda():
     step = sequences.batched_frontend(vo, rig, 2)[1]
     assert step.device.type == "cuda" and step.graph(2).per_replay
     assert min(out["accept_rate"]) >= 0.5
+
+
+# ---- slice 5: the command line, the online feed, checkpoint/resume ------------ #
+
+def _kitti_dir(root, n_frames):
+    """The bench scene's first frames at KITTI's 376x1241 as 8-bit PNGs, its
+    pose file and a reference-format YAML with its camera (``VOConfig``'s
+    defaults otherwise); returns (the YAML's path, the frames edge-padded to
+    the command line's 384x1248)."""
+    from PIL import Image
+    from stereo_visual_odometry_tpu_torch.utils import trajectory
+    from stereo_visual_odometry_tpu_torch.utils.kitti import pad_to
+    seq = synthetic.render_sequence(n_frames=n_frames, h=376, w=1241, fx=718.856,
+                                    baseline=0.537, n_points=9000, speed=1.1, seed=3)
+    for sub, key in (("image_0", "images_l"), ("image_1", "images_r")):
+        (root / sub).mkdir(parents=True)
+        for i, img in enumerate(seq[key].astype(np.uint8)):
+            Image.fromarray(img).save(root / sub / f"{i:06d}.png")
+    trajectory.save_kitti(str(root / "poses.txt"), seq["poses_gt"])
+    (root / "cfg.yaml").write_text(
+        "%YAML:1.0\ncamera1.fx: 718.856\ncamera1.fy: 718.856\ncamera1.cx: 620.5\n"
+        "camera1.cy: 188.0\nt_lr0: -0.537\ntrack_mode: LK_stereof2f_pnp\n"
+        "iterationsCount: 256\n")
+    frames = [(pad_to(l, 384, 1248), pad_to(r, 384, 1248))
+              for l, r in zip(seq["images_l"].astype(np.uint8), seq["images_r"].astype(np.uint8))]
+    return str(root / "cfg.yaml"), frames
+
+
+@pytest.mark.parametrize("overlays", [False, True])
+def test_cli_at_kitti_shape_counts_k1(tmp_path, monkeypatch, overlays):
+    """``cli.main`` on a KITTI directory runs on the card at 384x1248 (the
+    images' static shape), replaying the step graph with K1 counted 1 + 27
+    per tracked frame, and gives ``System.run``'s trajectory on the decoded
+    frames bit for bit, with the overlay dump on or off."""
+    need_cuda()
+    import dataclasses
+    from stereo_visual_odometry_tpu_torch import cli
+    from stereo_visual_odometry_tpu_torch.models import system as system_mod
+    n = 8
+    yaml, frames = _kitti_dir(tmp_path / "seq", n)
+    made = []
+    run = system_mod.System.run
+
+    def spy(self, *a, **kw):
+        made.append((self, run(self, *a, **kw)))
+        return made[-1][1]
+    monkeypatch.setattr(system_mod.System, "run", spy)
+    args = [yaml, "--dataset", str(tmp_path / "seq"), "--gt", str(tmp_path / "seq/poses.txt")]
+    if overlays:
+        args += ["--dump-overlays", str(tmp_path / "ovl"), "--every", "2"]
+    patch.extract_windows_int.launches = 0
+    assert cli.main(args) == 0
+    assert patch.extract_windows_int.launches == 1 + 27 * (n - 1)
+    (sys_, traj), = made
+    assert (sys_.vo_cfg.height, sys_.vo_cfg.width) == (384, 1248)
+    assert sys_.graph is not None and sys_.graph.per_replay == {"extract_windows_int": 27}
+    assert ("tracked_prev" in sys_.metrics[2]) == overlays
+    monkeypatch.setattr(system_mod.System, "run", run)
+    cfg = dataclasses.replace(sys_.config, overlay_dir="")
+    assert np.array_equal(traj, System(cfg, device="cuda").run(frames))
+
+
+def test_online_worker_captures_the_graph_and_equals_run():
+    """``OnlineVO`` on cuda: the worker makes the card current, its first
+    tracked step captures the graph there, and the trajectory equals
+    ``System.run``'s bit for bit; after ``close()`` the worker is gone."""
+    need_cuda()
+    import time
+    from stereo_visual_odometry_tpu_torch.models.online import OnlineVO
+    cfg, seq, frames = _graph_sequence(SMALL)
+    sys_ = System(cfg, device="cuda")
+    vo = OnlineVO(sys_, slop=0.02)
+    results, deadline = [], time.time() + 300
+    try:
+        for i, (l, r) in enumerate(frames):
+            vo.push_right(0.1 * i + 0.003, r)
+            vo.push_left(0.1 * i, l)
+        while len(results) < len(frames) and time.time() < deadline:
+            got = vo.poll(timeout=1.0)
+            if got is not None:
+                results.append(got)
+    finally:
+        vo.close()
+    assert not vo._worker.is_alive() and vo.dropped == 0 and len(results) == len(frames)
+    assert sys_.graph.key is not None  # captured, on the worker: no other thread stepped
+    assert np.array_equal(np.stack(sys_.poses), System(cfg, device="cuda").run(frames))
+
+
+def test_checkpoint_saved_on_cuda_loads_on_cpu_and_back(tmp_path):
+    """A checkpoint of a cuda ``System`` (the graph's buffers, persistent
+    tracks, the backend after its first slide) loads into a CPU ``System``
+    and, saved again there, back into a cuda one: the state's leaves, the
+    poses and the prior come back exact; under the graph ``load`` writes the
+    graph's own buffers. The generator's state stays on its device type
+    (the CPU's and CUDA's generators are other algorithms)."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.models.backend import BackendConfig
+    from stereo_visual_odometry_tpu_torch.utils import checkpoint
+    from stereo_visual_odometry_tpu_torch.utils.tree import tree_pairs
+    cfg, _, frames = _graph_sequence(dict(SMALL, persistent_tracks=True), n_frames=9)
+    bcfg = BackendConfig(window=3, kf_every=2, max_landmarks=128, max_obs=1024, ba_iters=4)
+    src = System(cfg, device="cuda", backend_cfg=bcfg)
+    src.run(frames)
+    assert src.backend.prior is not None and src.state is src.graph.state
+    checkpoint.save(str(tmp_path / "cuda.npz"), src)
+    cpu = System(cfg, device="cpu", backend_cfg=bcfg)
+    cpu.step(*frames[0])
+    checkpoint.load(str(tmp_path / "cuda.npz"), cpu)
+    checkpoint.save(str(tmp_path / "cpu.npz"), cpu)
+    back = System(cfg, device="cuda", backend_cfg=bcfg)
+    back.step(*frames[0])
+    buffers = back.state
+    checkpoint.load(str(tmp_path / "cpu.npz"), back)
+    assert back.state is buffers is back.graph.state  # written in place
+    for sys_ in (cpu, back):
+        pairs = tree_pairs(src.state, sys_.state)
+        assert len(pairs) > 10
+        for path, a, b in pairs:
+            assert b.device.type == sys_.device.type and torch.equal(a.cpu(), b.cpu()), path
+        np.testing.assert_array_equal(np.stack(sys_.poses), np.stack(src.poses))
+        for k, v in src.backend.prior.items():
+            np.testing.assert_array_equal(sys_.backend.prior[k], v)
+        assert sys_.backend._last_kf_n_tracked == src.backend._last_kf_n_tracked
+    assert torch.equal(back.generator.get_state(),
+                       torch.Generator(device="cuda").manual_seed(cfg.seed).get_state())
+    back.step(*frames[-1])  # the next replay reads the loaded buffers
+    assert back.frame_idx == src.frame_idx + 1

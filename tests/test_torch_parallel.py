@@ -369,6 +369,10 @@ def test_new_modules_import_no_jax():
         "from stereo_visual_odometry_tpu_torch.ops import library\n"
         "from stereo_visual_odometry_tpu_torch.utils import kitti\n"
         "from stereo_visual_odometry_tpu_torch.probes import batched, multihost_demo\n"
+        "from stereo_visual_odometry_tpu_torch import cli\n"
+        "from stereo_visual_odometry_tpu_torch.models import online\n"
+        "from stereo_visual_odometry_tpu_torch.native import loader\n"
+        "from stereo_visual_odometry_tpu_torch.utils import checkpoint, logging, viz\n"
         "assert not any(m == 'stereo_visual_odometry_tpu' or\n"
         "               m.startswith('stereo_visual_odometry_tpu.') for m in sys.modules)\n"
         "print('ok')\n")

@@ -21,6 +21,8 @@ another tracker). Tolerances:
     within 0.05 m of each other. Different draws pick different minimal
     samples; over the 7 steps that moves the trajectory by a few cm.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -139,8 +141,11 @@ def test_system_reinit_after_lost(seq, tmp_path):
     assert sys_.status == 1  # TRACKING_GOOD after the reinit
     traj = sys_.run([])  # writes the trajectory so far
     np.testing.assert_allclose(trajectory.load_kitti(cfg.trajectory_out), traj, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System(RunConfig(overlay_dir=str(tmp_path)), device="cpu")
+    ovl = tmp_path / "overlays"
+    System(RunConfig(camera=CameraConfig(**_cam(seq)), vo=VOConfig(**SMALL), overlay_dir=str(ovl),
+                     overlay_every=2), device="cpu").run(
+        list(zip(seq["images_l"][:3], seq["images_r"][:3])))
+    assert sorted(os.listdir(ovl)) == ["tracks_000002.png"]  # every 2nd frame, not the init
 
 
 def test_run_chunked_reinit_after_lost(seq):

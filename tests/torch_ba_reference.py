@@ -17,6 +17,14 @@ CASE ``orb_bench``: ORB with persistent tracks on the 49 bench frames of
 with ``BackendConfig(window=6, kf_every=4)``, the path of phase 17 that
 the JAX bench never ran (``jax`` or ``port_dense``).
 
+CASE ``cli_ba``: what ``chip_smoke.py`` phase 19 hands the command line
+with ``--ba --window 6 --kf-every 4``: the 49 bench frames as 8-bit PNGs
+(376x1241, truncated to uint8) edge-padded to the CLI's 384x1248, LK at
+1024 features with persistent tracks (``--ba`` forces them),
+frontend-only and ``BackendConfig(window=6, kf_every=4)``; ``jax`` is the
+JAX CLI's path on the CPU (its default tracker there, the XLA
+formulation).
+
 CASE ``lk_bench``: LK on the bench scene of ``chip_smoke.py`` phases 6
 and 16 (seed 3, 9000 landmarks, 1.1 m/frame, 49 frames) at half resolution
 (188x620 padded to 192x640, fx 359.428, 512 features: a full-size run is a
@@ -82,6 +90,16 @@ def main(case: str, which: str, seed: int = 0) -> None:
                   lk_backend="xla" if which == "port_xla" else "auto")
         passes = [(label, VOConfig(persistent_tracks=on, **lk), None)
                   for label, on in (("tracks_off", False), ("tracks_on", True))]
+    elif case == "cli_ba":
+        seq = synthetic.render_sequence(n_frames=49, h=376, w=1241, fx=718.856,
+                                        baseline=0.537, n_points=9000, speed=1.1, seed=3)
+        pad = lambda a: np.pad(a.astype(np.uint8), ((0, 0), (0, 8), (0, 7)), mode="edge")
+        frames = list(zip(pad(seq["images_l"]), pad(seq["images_r"])))
+        cam = CameraConfig(fx=718.856, fy=718.856, cx=1241 / 2, cy=376 / 2, baseline=0.537)
+        vo = VOConfig(height=384, width=1248, persistent_tracks=True,
+                      lk_backend="xla" if which == "port_xla" else "auto")
+        passes = [("frontend_only", vo, None),
+                  ("ba_marg", vo, BackendConfig(window=6, kf_every=4))]
     else:
         seq = synthetic.render_sequence(n_frames=49, h=376, w=1241, fx=718.856,
                                         baseline=0.537, n_points=9000, speed=1.1, seed=3)
@@ -91,7 +109,7 @@ def main(case: str, which: str, seed: int = 0) -> None:
         vo = VOConfig(mode="orb", height=384, width=1280, max_features=2048,
                       persistent_tracks=True)
         window = dict(window=6, kf_every=4)
-    if case != "lk_bench":
+    if case in ("drifty", "orb_bench"):
         passes = [(label, vo, bcfg) for label, bcfg in (
             ("frontend_only", None), ("ba_marg", BackendConfig(**window)),
             ("ba_drop_oldest", BackendConfig(**window, marginalize=False)))]
