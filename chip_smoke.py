@@ -6,7 +6,7 @@ sliding-window BA backend; then S sequences in one batched step graph
 through ``parallel.evaluate`` and the distributed BA on NCCL; then the
 command line, checkpoint/resume and the online feed on a KITTI directory.
 
-    python3 chip_smoke.py    # the twenty phases below, on cuda:0
+    python3 chip_smoke.py    # the twenty-one phases below, on cuda:0
 
 Phases (each prints one line; any failure exits non-zero):
   1. device: needs ``torch.cuda.is_available()`` (no CPU path); prints
@@ -174,16 +174,31 @@ Phases (each prints one line; any failure exits non-zero):
      captures the graph, K1 1 + 27 x 15, the trajectory bit for bit
      ``System.run``'s; a burst into ``maxlen=2`` drops and never blocks;
      after ``close()`` no worker is alive;
- 20. the kernel report.
+ 20. ``bench.py``'s card legs through ``probes/bench.py``'s own functions
+     (``python -m stereo_visual_odometry_tpu_torch.probes.bench``): the
+     kernel parity block on the first bench pair (K2 against the bilinear
+     sampler, LK on K1 and K3 against the XLA formulation, BRIEF bits
+     against float64), then ``gpu_lk`` and ``gpu_orb`` on phase 6's 49
+     frames and on the flicker and yaw variants (``System.run_chunked``,
+     chunk 16, the shipping configs at 1024 / 2048 features), the OpenCV
+     rows read from ``BASELINE_MEASURED.json``, and the ``ba`` block built
+     from phase 17's three passes; prints the bench's JSON line. LK rows:
+     accept >= 0.95, K1 1 + 27 x 48, ATE < 0.05 m (clean, yaw), < 0.097
+     (flicker); ORB rows: accept >= 0.95, K1 and K2 16 x 49, ATE < 0.07
+     (clean), < 0.132 (flicker), < 0.144 (yaw); ``gpu_parity.ok`` with K1,
+     K2 and K3 launched; 20-40 solves;
+ 21. the kernel report.
 The launch counts hold without a reinit; each slice's run sets every
 count to 0 just before ``run_chunked`` (``run`` in phase 17,
 ``evaluate_batch`` in phase 18, ``cli.main`` and the online feed in phase
-19) and reads them just after. The second-to-last line is the kernel
+19, each bench row and the parity block in phase 20) and reads them just
+after. The second-to-last line is the kernel
 report (JSON), the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -604,21 +619,20 @@ def persistent_phase(mods, cam, frames, poses_gt) -> dict:
                      f"equal to the graph's bit for bit: {same}")
         del graphed, eager
         torch.cuda.empty_cache()
-    say("[16/20] " + "; ".join(lines))
+    say("[16/21] " + "; ".join(lines))
     return launches
 
 
-def ba_leg_phase(mods, cam, frames, poses_gt, smi) -> dict:
+def ba_leg_phase(mods, cam, frames, poses_gt, smi) -> tuple[dict, dict]:
     """Phase 17: the JAX bench's BA leg through ``System.run`` (three
     passes), one profiled solve, and ORB with the backend on phase 7's
-    frames; returns each pass's launches."""
+    frames; returns each pass's launches, and the three passes' ATE and
+    solves (label -> dict) for phase 20's ``ba`` block."""
     np, torch, kernels, ba_leg = mods["np"], mods["torch"], mods["kernels"], mods["ba_leg"]
     VOConfig, RunConfig, BackendConfig = mods["VOConfig"], mods["RunConfig"], mods["BackendConfig"]
     launches = {}
     ba_frames, ba_gt, ba_cam = ba_leg.leg_frames()
-    ba_vo = VOConfig(mode="lk", height=H, width=W, max_features=N_POINTS,
-                     min_features_track=8, persistent_tracks=True)
-    ba_cfg = RunConfig(camera=ba_cam, vo=ba_vo)
+    ba_cfg = ba_leg.leg_run_config(ba_cam)
     leg, be_marg = {}, None
     for label, bcfg in ba_leg.leg_configs():
         reset_launches(kernels)
@@ -640,7 +654,7 @@ def ba_leg_phase(mods, cam, frames, poses_gt, smi) -> dict:
     walls = {k: [1e3 * r["wall_s"] for r in leg[k]["solves"]]
              for k in ("ba_marg", "ba_drop_oldest")}
     k1 = [launches[f"ba_leg_{k}"]["extract_windows_int"] for k in leg]
-    say(f"[17/20] BA leg passes: ATE {fe:.4f} / {mg:.4f} / {dr:.4f} m, solves {n_solves}, "
+    say(f"[17/21] BA leg passes: ATE {fe:.4f} / {mg:.4f} / {dr:.4f} m, solves {n_solves}, "
           f"K1 launches {k1}")
     prof = profile_solve(torch, mods["profiling"], be_marg, mods["ba"])
     del be_marg
@@ -657,7 +671,7 @@ def ba_leg_phase(mods, cam, frames, poses_gt, smi) -> dict:
     del r
     med = lambda v: float(np.median(v)) if v else float("nan")
     orb_wall = med([1e3 * r["wall_s"] for r in orb_solves])
-    say(f"[17/20] BA leg on {smi}, System.run on cuda, {BA_FRAMES} frames 376x1241 "
+    say(f"[17/21] BA leg on {smi}, System.run on cuda, {BA_FRAMES} frames 376x1241 "
           f"padded to {H}x{W}, LK {N_POINTS} features, persistent tracks; ATE (not aligned) "
           f"frontend-only {fe:.4f} m, BA+marg {mg:.4f} m, drop-oldest {dr:.4f} m; accept "
           + ", ".join(f"{k} {v['accept']:.3f}" for k, v in leg.items())
@@ -706,6 +720,64 @@ def ba_leg_phase(mods, cam, frames, poses_gt, smi) -> dict:
     check(orb_ate < 1.5 * 0.4603 and len(orb_solves) >= 2 and all(
         r["cost_final"] <= 1.001 * r["cost_initial"] for r in orb_solves),
           f"ORB with the backend: ATE {orb_ate} m, {len(orb_solves)} solves")
+    return launches, {k: {"ate": v["ate"], "solves": v["solves"]} for k, v in leg.items()}
+
+
+# Phase 20's ATE bounds (m) per bench row: the clean rows phases 6 and 7's;
+# flicker and yaw twice the JAX reference's TPU ATE (BENCH_r05.json
+# tpu_{lk,orb}_{flicker,yaw}), never below the clean bound.
+BENCH_MAX_ATE = {"gpu_lk": 0.05, "gpu_lk_flicker": 0.097, "gpu_lk_yaw": 0.05,
+                 "gpu_orb": 0.07, "gpu_orb_flicker": 0.132, "gpu_orb_yaw": 0.144}
+
+
+def bench_phase(mods, frames, ba_passes, smi) -> dict:
+    """Phase 20: the JAX bench's card legs through ``probes/bench.py``'s own
+    functions (``bench_result``: the kernel parity block, the six rows on
+    49 frames each, the OpenCV rows from ``BASELINE_MEASURED.json``), its
+    ``ba`` block built by ``bench.ba_block`` from phase 17's three passes;
+    prints the JSON line ``python -m ...probes.bench`` prints. Returns each
+    run's launches."""
+    torch, kernels, bench = mods["torch"], mods["kernels"], mods["bench"]
+    zero = dict.fromkeys(kernels, 0)
+    launches = {}
+
+    @contextlib.contextmanager
+    def each_run(name):
+        reset_launches(kernels)
+        yield
+        torch.cuda.synchronize()
+        launches[f"bench_{name}"] = {k: fn.launches for k, fn in kernels.items()}
+
+    t0 = time.perf_counter()
+    line = bench.bench_result("cuda", lambda: bench.ba_block(ba_passes, BA_FRAMES), each_run,
+                              frames=frames)
+    secs = time.perf_counter() - t0
+    print(json.dumps(line))
+    rows = line["parity"]
+    want = {"lk": dict(zero, extract_windows_int=1 + LK_LAUNCHES_PER_STEP * (N_FRAMES - 1)),
+            "orb": dict(zero, extract_windows_int=ORB_LAUNCHES_PER_FRAME * N_FRAMES,
+                        extract_patches=ORB_LAUNCHES_PER_FRAME * N_FRAMES)}
+    par = launches["bench_gpu_parity"]
+    say(f"[20/21] bench.py's card legs (probes/bench.py) on {smi}, {N_FRAMES} frames {H}x{W}: "
+        + "; ".join(f"{k} ATE {r['ate_m']} m, accept {r['accept_rate']}, n_tracked "
+                    f"{r['n_tracked']}, {r['fps']} frames/s, launches "
+                    f"{ {n: c for n, c in launches['bench_' + k].items() if c} }"
+                    for k, r in rows.items() if k.startswith("gpu_"))
+        + f"; headline {line['value']} {line['unit']}, vs_baseline {line['vs_baseline']} "
+        f"(OpenCV rows cached); gpu_parity {line['gpu_parity']}, launches "
+        f"{ {n: c for n, c in par.items() if c} }; ba {line['ba']}; {secs:.1f} s")
+    for name, max_ate in BENCH_MAX_ATE.items():
+        r = rows[name]
+        check(r["ate_m"] < max_ate and r["accept_rate"] >= 0.95,
+              f"bench {name}: ATE {r['ate_m']} m (bound {max_ate}), accept {r['accept_rate']}")
+        mode = name.split("_")[1]
+        check(launches[f"bench_{name}"] == want[mode],
+              f"bench {name}: launches {launches[f'bench_{name}']}, want {want[mode]}")
+    check(line["gpu_parity"]["ok"] is True, f"bench gpu_parity: {line['gpu_parity']}")
+    check(all(par[k] > 0 for k in ("extract_windows_int", "extract_patches",
+                                   "level_track_cell")),
+          f"bench gpu_parity did not launch K1, K2 and K3: {par}")
+    check(20 <= line["ba"]["n_solves"] <= 40, f"bench ba: {line['ba']}")
     return launches
 
 
@@ -883,18 +955,18 @@ def slice4_phase(mods, cam, il, ir, poses_gt, bounds) -> tuple[dict, dict]:
     drive("ORB-batched-S2", VOConfig(mode="orb", height=H, width=W, max_features=ORB_FEATURES),
           BRANCH_FRAMES, 2, dict(zero, extract_windows_int=ORB_LAUNCHES_PER_FRAME * BRANCH_FRAMES,
                                  extract_patches=ORB_LAUNCHES_PER_FRAME * BRANCH_FRAMES), 0.07)
-    say("[18/20] slice 4, S sequences in one batched step graph (the same frames per "
+    say("[18/21] slice 4, S sequences in one batched step graph (the same frames per "
           "sequence, draws of their own): " + "; ".join(lines) + "; " + nodes)
 
     entries = batched_entries(mods, bounds)
-    say("[18/20] the batched entries (B = 3 sequences, other images per sequence) against "
+    say("[18/21] the batched entries (B = 3 sequences, other images per sequence) against "
           "their plain versions (K1, K2 exact; K3, K4 phase 5's criteria) and against B = 1 "
           "calls (bit for bit), one launch each; at B = 4 in a graph against 4 x B = 1: "
           + "; ".join(f"{k} ({v['entry']}) max err {v['max_abs_err']:.2e}, B=4 "
                       f"{1e3 * v['graph_ms_b4']:.2f} us against 4xB=1 "
                       f"{1e3 * v['graph_ms_4x1']:.2f} us, bound {1e3 * v['bound_ms_b4']:.3f} us"
                       for k, v in entries.items()))
-    say("[18/20] " + dist_solve(mods))
+    say("[18/21] " + dist_solve(mods))
     return launches, dict(entries, s4=s4, s1=s1)
 
 
@@ -1109,7 +1181,7 @@ def slice5_phase(mods, cam, il, ir, poses_gt) -> tuple[dict, dict]:
             np.array_equal(l, pad(a)) and np.array_equal(r, pad(b))
             for (l, r), a, b in zip(frames, raw_l, raw_r)),
               f"the {ds.decoder} decoder's frames differ from the written bytes")
-        say(f"[19/20] slice 5 on a KITTI directory of {N_FRAMES} frames {h}x{w} (8-bit PNGs "
+        say(f"[19/21] slice 5 on a KITTI directory of {N_FRAMES} frames {h}x{w} (8-bit PNGs "
             f"by zlib): {has_line}; the dataset decodes with {ds.decoder!r}, "
             f"{decode_ms:.2f} ms per pair (padded to {SLICE5_HW}), frames equal to the "
             "written bytes")
@@ -1130,7 +1202,7 @@ def slice5_phase(mods, cam, il, ir, poses_gt) -> tuple[dict, dict]:
                          f"N) {k1s}, {len(calls['extract_patches'])} K2 calls on (h, w, P, "
                          f"N) {k2s}")
         k1_err = max(e[0] for e in errs.values())
-        say(f"[19/20] K1 and K2 vs plain on the calls of one eager tracked step at "
+        say(f"[19/21] K1 and K2 vs plain on the calls of one eager tracked step at "
             f"{SLICE5_HW}: " + "; ".join(parts) + f": max abs err K1 {k1_err}, K2 "
             f"{errs['ORB'][1]} (tolerance 0)")
 
@@ -1275,7 +1347,7 @@ def slice5_phase(mods, cam, il, ir, poses_gt) -> tuple[dict, dict]:
                      f"bit for bit: {same_v}; overlay arrays on the host {shapes}; PNGs "
                      + (f"{len(pngs)}" if has["matplotlib"] else
                         "absent (no matplotlib: draw_tracks writes nothing, as in JAX)"))
-        say("[19/20] the command line on cuda (python -m stereo_visual_odometry_tpu_torch.cli, "
+        say("[19/21] the command line on cuda (python -m stereo_visual_odometry_tpu_torch.cli, "
             "in process; counts set to 0 before each call): " + "; ".join(lines))
         del sys_a, sys_c, sys_o, sys_b, sys_v, made
         torch.cuda.empty_cache()
@@ -1374,7 +1446,7 @@ def slice5_phase(mods, cam, il, ir, poses_gt) -> tuple[dict, dict]:
                   f"of {BURST} into maxlen=2: {len(got)} stepped, {burst.dropped} dropped, the "
                   f"longest push {longest * 1e3:.3f} ms; after close() the workers alive: "
                   f"{vo._worker.is_alive()} / {burst._worker.is_alive()}")
-        say("[19/20] " + "; ".join((c_line, d_line, e_line)))
+        say("[19/21] " + "; ".join((c_line, d_line, e_line)))
         del sys_e
         torch.cuda.empty_cache()
     finally:
@@ -1396,7 +1468,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
     kind = torch.cuda.get_device_name(0)
-    say(f"[1/20] device: {kind} x{torch.cuda.device_count()}, torch "
+    say(f"[1/21] device: {kind} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, cuda {torch.version.cuda}")
     print(smi)
 
@@ -1448,7 +1520,7 @@ def main() -> int:
     roll.launcher()
     bind_s = time.perf_counter() - t0
     cxx = native.extension_command("roll_binding")[0]
-    say(f"[2/20] kernel library {lib_path.name} {how} in {build_s:.2f}s; K7 binding "
+    say(f"[2/21] kernel library {lib_path.name} {how} in {build_s:.2f}s; K7 binding "
           f"{ext_path.name} {how_ext} with {cxx} (no ninja) in {bind_s:.2f}s; "
           f"ptxas: {'; '.join(ptxas)}")
 
@@ -1473,7 +1545,7 @@ def main() -> int:
         check(err == 0.0, f"K1 disagrees with its plain version at {(hp, wp, S, n)}: "
               f"max abs err {err}")
         k1_err = max(k1_err, err)
-    say(f"[3/20] K1 vs plain at {len(K1_SHAPES)} LK shapes (N={N_POINTS}), the XLA "
+    say(f"[3/21] K1 vs plain at {len(K1_SHAPES)} LK shapes (N={N_POINTS}), the XLA "
           f"tracker's S=64/36 windows, {len(orb_maps)} ORB score maps (S=3, "
           f"N=budget) and N={K1_RAGGED} at S=24, (5, 7), (64, 36) ({len(k1_cases)} "
           f"cases): max abs err {k1_err} (tolerance 0: a copy)")
@@ -1502,7 +1574,7 @@ def main() -> int:
             bits_p = orb.brief_bits_from_patches(want, None)
             bit_flips += int((bits_k != bits_p).sum())
     check(bit_flips == 0, f"K2's patches give {bit_flips} other BRIEF bits")
-    say(f"[4/20] K2 vs plain (on the padded image, and the clamped plain version) at "
+    say(f"[4/21] K2 vs plain (on the padded image, and the clamped plain version) at "
           f"{len(ORB_LEVELS)} ORB level shapes (P={ORB_PATCH}, N={ORB_BUDGETS}), P=31 at "
           f"levels 0-1, and centres up to 2 px outside on all four sides at levels 0, 3, "
           f"6 for P={ORB_PATCH}/31 and N={K2_RAGGED} ({len(k2_cases)} cases): max abs err "
@@ -1535,7 +1607,7 @@ def main() -> int:
     empty = [no_points(torch, name, kernels, lk_bool, lambda name=name: lk_fn[name](
         args[0], args[1], args[2][:0], args[3][:0], pad=PAD, active=active[:0]))
         for name in ("cell", "v1")]
-    say(f"[5/20] K3 (cell) and K4 (v1) vs plain (kernel against plain), N={N_POINTS}, "
+    say(f"[5/21] K3 (cell) and K4 (v1) vs plain (kernel against plain), N={N_POINTS}, "
           f"win {WIN}, 30 iters, {int(active.sum())} active: " + "; ".join(lines)
           + f"; N = 0, empty and no launch counted: {', '.join(empty)}")
 
@@ -1553,14 +1625,14 @@ def main() -> int:
     launches = {}
     lk, launches["lk"] = run(VOConfig(**lk_vo), "LK")
     want = dict(zero, extract_windows_int=1 + LK_LAUNCHES_PER_STEP * (N_FRAMES - 1))
-    say("[6/20] " + describe_slice("LK", lk, launches["lk"], want))
+    say("[6/21] " + describe_slice("LK", lk, launches["lk"], want))
     check_slice("LK", lk, launches["lk"], want, 0.05, 0.95)
 
     orb_cfg = VOConfig(mode="orb", height=H, width=W, max_features=ORB_FEATURES)
     ob, launches["orb"] = run(orb_cfg, "ORB")
     want = dict(zero, extract_windows_int=ORB_LAUNCHES_PER_FRAME * N_FRAMES,
                 extract_patches=ORB_LAUNCHES_PER_FRAME * N_FRAMES)
-    say("[7/20] " + describe_slice("ORB", ob, launches["orb"], want))
+    say("[7/21] " + describe_slice("ORB", ob, launches["orb"], want))
     check_slice("ORB", ob, launches["orb"], want, 0.07, 0.95)
 
     # 8. The LK slice on K3 and on K4 ---------------------------------------
@@ -1573,7 +1645,7 @@ def main() -> int:
                                     want))
         check_slice(f"LK-{name}", r, launches[f"lk_{name}"], want, 0.05, 0.95)
         lines[-1] += f"; {lk['ms_frame'] / r['ms_frame']:.2f}x the dense LK ms/frame"
-    say("[8/20] " + "; ".join(lines) + f" (dense: {lk['ms_frame']:.2f} ms/frame)")
+    say("[8/21] " + "; ".join(lines) + f" (dense: {lk['ms_frame']:.2f} ms/frame)")
 
     # 9. The kernel-free LK branches on the first 16 frames -------------------
     lines = []
@@ -1586,7 +1658,7 @@ def main() -> int:
                                     BRANCH_FRAMES))
         check_slice(f"LK-{tag}", r, launches[f"lk_{tag}"], want, 0.15, 0.9,
                     ate="ate_from_1")
-    say("[9/20] " + "; ".join(lines))
+    say("[9/21] " + "; ".join(lines))
 
     # 10. K5 and K6 vs plain, and vs the K3 and K4 kernels ---------------------
     lines = []
@@ -1668,7 +1740,7 @@ def main() -> int:
         lines.append(line)
     empty = [no_points(torch, name, kernels, lk_bool, lambda name=name: lk_fn[name](
         args[0], args[1], args[2][:0], args[3][:0], pad=PAD)) for name in ("block", "v2")]
-    say(f"[10/20] K5 (block) and K6 (v2) vs plain (K3's and K4's plain versions) and "
+    say(f"[10/21] K5 (block) and K6 (v2) vs plain (K3's and K4's plain versions) and "
           f"vs the K3/K4 kernels, N={N_POINTS}, win {WIN}, 30 iters, K5 with phase 5's "
           f"mask, K6's wrapper on every point and its bare entry with the mask: "
           + "; ".join(lines)
@@ -1719,7 +1791,7 @@ def main() -> int:
             refused.append(str(e).split(",")[0])
         check(roll.roll.launches == before, "K7 counted a launch for a refused input")
     check(len(refused) == 2, f"K7 took a float64 or a 3-D input: {refused}")
-    say(f"[11/20] K7 through its binding vs plain (torch.roll) over {k7_cases} cases: axis "
+    say(f"[11/21] K7 through its binding vs plain (torch.roll) over {k7_cases} cases: axis "
           f"0 and 1, ({probe_roll.ROWS[0]}..{probe_roll.ROWS[-1]}, {probe_roll.COLS}), amounts "
           f"0, 1, 3, 7, 9 (axis 0) / 100 (axis 1), -1, the axis length and + 5, and on the "
           f"one-element kernel (37, 255) and a (128, 256) view 4 bytes off alignment: max abs "
@@ -1750,7 +1822,7 @@ def main() -> int:
     k8_node = {label: one_node(torch, profiling, f"K8 {label}",
                                lambda label=label: lk_breakdown.run_variant(label, probe_in))
                for label in lk_breakdown.VARIANTS}
-    say(f"[12/20] K8 vs plain at {tuple(probe_in['prev'].shape)}, N={len(probe_in['pts'])}: "
+    say(f"[12/21] K8 vs plain at {tuple(probe_in['prev'].shape)}, N={len(probe_in['pts'])}: "
           + ", ".join(f"{lb} relative error {k8[lb]['rel_err']:.2e} (max abs "
                       f"{k8[lb]['abs_err']:.3g})" for lb in split_labels)
           + f" (tolerance 1e-4: sums in another order); full equals K5's output bit for "
@@ -1789,7 +1861,7 @@ def main() -> int:
     probe_t = probe_block.timing_ms(probe_in)
     k8_graph = lk_breakdown.timing_ms(probe_in)
     k8_split = lk_breakdown.split(k8_graph)
-    say("[13/20] probes (launches read after each run: "
+    say("[13/21] probes (launches read after each run: "
           + ", ".join(f"{p} {({k: v for k, v in launches[p].items() if v})}"
                       for p in probe_paths) + "): "
           + "; ".join(probe_block.describe(probe_out["probe_lk_block"], probe_t))
@@ -1894,7 +1966,7 @@ def main() -> int:
                 f"{us(t['library_graph_ms'])} (max diff {t['library_max_diff']}), bound "
                 f"{b_ms * 1e3:.3f} us ({b_by}), wrapper host time {t['host_us']:.2f} us")
 
-    say("[14/20] K3-K6 (probes/lk_timing.py; graphs of "
+    say("[14/21] K3-K6 (probes/lk_timing.py; graphs of "
           f"{lk_timing.GRAPH_CALLS} calls; staged share at margins {lk_timing.MARGINS}, "
           f"shipped {lk_v1.STAGE_MARGIN}; K6's wrapper on every point, one device op "
           f"(phase 10), its kernel alone with the mask): " + "; ".join(
@@ -1910,15 +1982,15 @@ def main() -> int:
               f"(largest {us(b['kernel_graph_ms_max'])}), iterations {b['iters']}, staged "
               f"share {b['staged_share']}"
               for k, b in lkt["bench"].items()))
-    say("[14/20] host time per K1 wrapper call, us (perf_counter over "
+    say("[14/21] host time per K1 wrapper call, us (perf_counter over "
           f"{patch_timing.HOST_CALLS} calls, no sync): "
           + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
-    say("[14/20] host time per K7 call, us (the same way): "
+    say("[14/21] host time per K7 call, us (the same way): "
           + ", ".join(f"{k} {v:.3f}" for k, v in k7_host.items())
           + f"; in a graph of {patch_timing.GRAPH_CALLS} calls, in turns: one row "
           f"{us(pt['k7']['one_row_graph_ms'])} (K7's practical floor), "
           f"{patch_timing.K7_SHAPE} {us(pt['k7']['graph_ms_beside_one_row'])}")
-    say(f"[14/20] CUDA events, {patch_timing.B2B_CALLS} calls each (5 for the LK plain "
+    say(f"[14/21] CUDA events, {patch_timing.B2B_CALLS} calls each (5 for the LK plain "
           f"versions), and CUDA graphs of {patch_timing.GRAPH_CALLS} calls: "
           + patch_line(f"K1 S={S} N={N_POINTS} on {patch_timing.K1_SHAPE[:2]}", "k1",
                        k1_plain, k1_bound, k1_by, "grid_sample(nearest)") + "; "
@@ -1967,9 +2039,9 @@ def main() -> int:
                                      fr[-1]))
         del eager, graphed
         torch.cuda.empty_cache()  # the graph's pool
-    say("[15/20] eager against graph, System.run_chunked in turns (eager, then graph; "
+    say("[15/21] eager against graph, System.run_chunked in turns (eager, then graph; "
           "steady ms/frame after the first chunk): " + "; ".join(lines))
-    say("[15/20] one profiled step per path (eager: step_fn; graph: one replay; device "
+    say("[15/21] one profiled step per path (eager: step_fn; graph: one replay; device "
           "ops = kernels, copies and fills; idle = 1 - busy / wall): " + "; ".join(profiles))
 
     # 16-17. Slice 3: persistent tracks, the BA leg ------------------------
@@ -1977,7 +2049,8 @@ def main() -> int:
                 kernels=kernels, VOConfig=VOConfig, RunConfig=RunConfig,
                 BackendConfig=BackendConfig, ba=ba, ba_leg=ba_leg, profiling=profiling)
     launches.update(persistent_phase(mods, cam, frames, poses_gt))
-    launches.update(ba_leg_phase(mods, cam, frames, poses_gt, smi))
+    ba_launches, ba_passes = ba_leg_phase(mods, cam, frames, poses_gt, smi)
+    launches.update(ba_launches)
 
     # 18. Slice 4: S sequences in one step graph, the batched entries, the
     # distributed solve ------------------------------------------------------
@@ -1999,7 +2072,12 @@ def main() -> int:
     k1_err, k2_err = max(k1_err, s5_err["extract_windows_int"]), max(k2_err,
                                                                     s5_err["extract_patches"])
 
-    # 20. Kernel report ---------------------------------------------------
+    # 20. bench.py's card legs ------------------------------------------------
+    from stereo_visual_odometry_tpu_torch.probes import bench
+    mods.update(bench=bench)
+    launches.update(bench_phase(mods, (il, ir, poses_gt), ba_passes, smi))
+
+    # 21. Kernel report ---------------------------------------------------
     src = "stereo_visual_odometry_tpu_torch/csrc/"
     by_path = lambda name: {p: ln[name] for p, ln in launches.items()}
     timed_keys = ("ms", "graph_ms", "library_ms", "library_graph_ms", "library_max_diff")
@@ -2052,7 +2130,7 @@ def main() -> int:
             entry["batched"] = s4[entry["name"]]
         entry["launches_by_path"] = by_path(entry["name"])
         entry["launches"] = sum(entry["launches_by_path"].values())
-    say(f"[20/20] kernel report and result ({time.perf_counter() - t_start:.1f} s since the "
+    say(f"[21/21] kernel report and result ({time.perf_counter() - t_start:.1f} s since the "
           "start)")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

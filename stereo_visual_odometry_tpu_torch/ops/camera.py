@@ -92,3 +92,22 @@ class StereoRig:
         K = self.right.K
         R, t = se3.to_Rt(self.T_rl)
         return torch.cat([K @ R, (K @ t)[:, None]], dim=1)
+
+
+def world2camera(T_cw: torch.Tensor, pts_w: torch.Tensor) -> torch.Tensor:
+    """World points -> camera frame given the camera-from-world pose."""
+    return se3.transform_points(T_cw, pts_w)
+
+
+def camera2world(T_cw: torch.Tensor, pts_c: torch.Tensor) -> torch.Tensor:
+    return se3.transform_points(se3.se3_inv(T_cw), pts_c)
+
+
+def world2pixel(cam: Pinhole, T_cw: torch.Tensor, pts_w: torch.Tensor) -> torch.Tensor:
+    """``Sensors::world2pixel``: world points (..., N, 3) -> pixels (..., N, 2)."""
+    return cam.project(world2camera(T_cw, pts_w))
+
+
+def pixel2world(cam: Pinhole, T_cw: torch.Tensor, px: torch.Tensor, depth) -> torch.Tensor:
+    """``Sensors::pixel2world``: pixels (..., N, 2) at ``depth`` -> world points."""
+    return camera2world(T_cw, cam.unproject(px, depth))

@@ -57,3 +57,10 @@ def cho_solve_unrolled(L, b: torch.Tensor) -> torch.Tensor:
             s = s - L[k][i] * x[k]
         x[i] = s / L[i][i]
     return torch.stack(x, dim=-1)
+
+
+def spd_solve(A: torch.Tensor, b: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Batched SPD solve of (..., n, n) @ (..., n) with an optional ridge."""
+    if jitter:
+        A = A + jitter * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return cho_solve_unrolled(cholesky_unrolled(A), b)

@@ -148,6 +148,15 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return pts @ R.transpose(-1, -2) + t[..., None, :]
 
 
+def orthonormalize(R: torch.Tensor) -> torch.Tensor:
+    """Project a near-rotation onto SO(3) through its SVD (det +1)."""
+    U, _, Vh = torch.linalg.svd(R)
+    det = torch.linalg.det(U @ Vh)
+    D = torch.cat([torch.ones(R.shape[:-2] + (2,), dtype=R.dtype, device=R.device),
+                   det[..., None]], dim=-1)
+    return (U * D[..., None, :]) @ Vh
+
+
 def orthonormalize_newton(R: torch.Tensor, iters: int = 4) -> torch.Tensor:
     """Project a near-rotation onto SO(3) by Newton-Schulz polar iteration.
 

@@ -1,6 +1,6 @@
 """Fixed-shape keypoint selection from dense score maps.
 
-Port of ``grid_top_k``, ``subpixel_refine``, ``dedup_by_bin`` and
+Port of ``top_k_keypoints``, ``grid_top_k``, ``subpixel_refine``, ``dedup_by_bin`` and
 ``mask_min_distance`` from ``stereo_visual_odometry_tpu/ops/select.py``.
 Ties break the JAX way: the per-cell rounds keep the first maximal index
 (``torch.argmax`` does), and the global top-K is a stable descending sort,
@@ -12,6 +12,23 @@ from __future__ import annotations
 import torch
 
 from . import patch
+
+
+def top_k_keypoints(score: torch.Tensor, k: int):
+    """Global top-K of a dense score map.
+
+    Returns (xy (K, 2) float32 [x, y], scores (K,), valid (K,) bool);
+    invalid slots (score 0) carry xy = (0, 0). Equal scores keep their flat
+    order, as ``lax.top_k``.
+    """
+    h, w = score.shape
+    flat = score.reshape(-1)
+    order = torch.sort(flat, descending=True, stable=True).indices[:k]
+    vals = flat[order]
+    valid = vals > 0
+    xy = torch.stack([(order % w).to(torch.float32), (order // w).to(torch.float32)],
+                     dim=-1) * valid[:, None]
+    return xy, torch.where(valid, vals, 0.0), valid
 
 
 def grid_top_k(score: torch.Tensor, k_total: int, cell: int = 32,

@@ -56,3 +56,22 @@ def stereo_depth_closed_form(rig: StereoRig, pts_l: torch.Tensor,
     safe_disp = torch.clamp(disp, min=min_disparity)
     z = rig.left.fx * rig.baseline / safe_disp
     return rig.left.unproject(pts_l, z), valid
+
+
+def triangulate_stereo(rig: StereoRig, pts_l: torch.Tensor, pts_r: torch.Tensor,
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Triangulate stereo correspondences: the closed-form depth for a
+    rectified rig, the DLT otherwise (the reference's
+    ``cv::triangulatePoints``)."""
+    if is_rectified(rig):
+        return stereo_depth_closed_form(rig, pts_l, pts_r)
+    return triangulate_dlt(rig.P_left, rig.P_right, pts_l, pts_r)
+
+
+def reprojection_error(cam, T_cw: torch.Tensor, pts_w: torch.Tensor,
+                       px: torch.Tensor) -> torch.Tensor:
+    """Per-point pixel reprojection error norm (N,)."""
+    from . import se3
+
+    pc = se3.transform_points(T_cw, pts_w)
+    return torch.linalg.vector_norm(cam.project(pc) - px, dim=-1)

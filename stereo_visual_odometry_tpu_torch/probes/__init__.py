@@ -4,6 +4,8 @@ on the card (``--device cpu`` runs the plain versions at a small size).
 
   ba_leg        the JAX bench's BA leg through System, over RANSAC seeds or
                 given draws
+  bench         the JAX package's bench.py on the card: the bench rows, the
+                kernel parity block and the BA leg as one JSON line
   lk_block      K5/K6 against K3/K4: parity and time per level call
   lk_breakdown  K8: an LK level call split into template, reloads, iterations
   roll          K7: the dynamic-roll envelope

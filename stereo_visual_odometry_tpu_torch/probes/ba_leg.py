@@ -50,6 +50,16 @@ def leg_configs():
                              BackendConfig(window=6, kf_every=4, marginalize=False))))
 
 
+def leg_run_config(cam, seed: int = 0):
+    """The leg's ``RunConfig``: LK at 1024 features with persistent tracks
+    (``min_features_track=8``), ``seed`` for the RANSAC generator."""
+    from ..models.frontend import VOConfig
+    from ..utils.config import RunConfig
+    vo = VOConfig(mode="lk", height=H, width=W, max_features=FEATURES, min_features_track=8,
+                  persistent_tracks=True)
+    return RunConfig(camera=cam, vo=vo, seed=seed)
+
+
 def run_pass(cfg, frames, poses_gt, backend_cfg, device, draws=None, align=False) -> dict:
     """One ``System.run``: ATE, accept rate, the solves' result dicts, the
     median ms of the frames without a solve, and the ``System``. ``draws``:
@@ -77,11 +87,7 @@ def run_pass(cfg, frames, poses_gt, backend_cfg, device, draws=None, align=False
 def run_leg(frames, poses_gt, cam, device, seed: int = 0, draws=None) -> dict:
     """The three passes with one seed (or the given draws): per pass the ATE,
     accept, solves and median / max wall ms per solve."""
-    from ..models.frontend import VOConfig
-    from ..utils.config import RunConfig
-    vo = VOConfig(mode="lk", height=H, width=W, max_features=FEATURES, min_features_track=8,
-                  persistent_tracks=True)
-    cfg = RunConfig(camera=cam, vo=vo, seed=seed)
+    cfg = leg_run_config(cam, seed)
     out = {}
     for label, bcfg in leg_configs():
         r = run_pass(cfg, frames, poses_gt, bcfg, device, draws)

@@ -2,7 +2,9 @@
 
 A numpy copy of ``stereo_visual_odometry_tpu/utils/synthetic.py`` (the JAX
 package pulls in ``jax`` on any import, so the port keeps its own; a test
-holds the two outputs equal).
+holds the two outputs equal). The frames render on a pool of threads
+(``np.add.at`` releases the GIL), each with the sequential arithmetic, so
+the images are the JAX package's bit for bit.
 
 The reference has no test data and no tests (SURVEY.md §4); this generator
 provides the "short synthetic sequences with known ego-motion" its test plan
@@ -12,6 +14,9 @@ trajectory — enough texture for FAST/ORB/LK, with analytically known poses
 for ATE/RPE assertions.
 """
 from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -127,7 +132,8 @@ def render_sequence(n_frames: int = 30, h: int = 240, w: int = 320,
     # Textureless sector: points whose world azimuth falls in a slowly
     # rotating wedge are dropped for the whole run-through of the wedge.
     az = np.arctan2(pts_w[:, 0], pts_w[:, 2])
-    for f in range(n_frames):
+
+    def render_frame(f):
         T_cw = np.linalg.inv(poses[f])
         pc = pts_w @ T_cw[:3, :3].T + T_cw[:3, 3]
         vis = pc[:, 2] > 0.5
@@ -154,6 +160,8 @@ def render_sequence(n_frames: int = 30, h: int = 240, w: int = 320,
         imgs_l[f] = np.clip(left, 0, 255)
         imgs_r[f] = np.clip(right, 0, 255)
 
+    with ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1, n_frames))) as pool:
+        list(pool.map(render_frame, range(n_frames)))
     return {
         "images_l": imgs_l,
         "images_r": imgs_r,

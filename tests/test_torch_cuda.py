@@ -3,6 +3,8 @@ versions, the LK (dense and cell) and ORB slices on cuda against the
 same slices on the CPU, and the step's CUDA graph (``models/step_graph.py``)
 against the eager step.
 
+The bench (``probes/bench.py``): its kernel parity block on the card.
+
 Slice 5: the command line at KITTI's shape (384x1248) counting K1, the
 online feed's worker capturing the graph, a checkpoint from the card
 loading on the CPU and back.
@@ -1492,3 +1494,21 @@ def test_checkpoint_saved_on_cuda_loads_on_cpu_and_back(tmp_path):
                        torch.Generator(device="cuda").manual_seed(cfg.seed).get_state())
     back.step(*frames[-1])  # the next replay reads the loaded buffers
     assert back.frame_idx == src.frame_idx + 1
+
+
+def test_bench_gpu_parity_launches_k1_k2_k3():
+    """``probes/bench.py``'s kernel parity block on the bench's first pair:
+    ok (K2 within 2e-3 of the bilinear sampler, LK on K1 and K3 within a
+    median 0.05 px of the XLA formulation on >= 30 points, BRIEF bits equal
+    to float64's), with each of the three kernels launched."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.probes import bench
+
+    il, ir, _ = bench.make_frames(n_frames=2)
+    counted = (patch.extract_windows_int, patch.extract_patches, lk_cell.level_track_cell)
+    before = [fn.launches for fn in counted]
+    res = bench.run_gpu_parity(il, ir)
+    torch.cuda.synchronize()
+    assert res["ok"] is True, res
+    assert res["n_points_compared"] >= 30 and res["per_kernel"]["cell"]["n"] >= 30
+    assert all(fn.launches > b for fn, b in zip(counted, before)), res
