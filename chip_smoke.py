@@ -4,9 +4,10 @@ on one NVIDIA GPU, end to end through its ``System``: LK on each level
 tracker and prior of ``VOConfig``, ORB, persistent tracks and the
 sliding-window BA backend; then S sequences in one batched step graph
 through ``parallel.evaluate`` and the distributed BA on NCCL; then the
-command line, checkpoint/resume and the online feed on a KITTI directory.
+command line, checkpoint/resume and the online feed on a KITTI directory;
+then a sequence batch split over a ``seq`` mesh of two shards.
 
-    python3 chip_smoke.py    # the twenty-one phases below, on cuda:0
+    python3 chip_smoke.py    # the twenty-two phases below, on cuda:0 (and cuda:1)
 
 Phases (each prints one line; any failure exits non-zero):
   1. device: needs ``torch.cuda.is_available()`` (no CPU path); prints
@@ -187,12 +188,28 @@ Phases (each prints one line; any failure exits non-zero):
      (flicker); ORB rows: accept >= 0.95, K1 and K2 16 x 49, ATE < 0.07
      (clean), < 0.132 (flicker), < 0.144 (yaw); ``gpu_parity.ok`` with K1,
      K2 and K3 launched; 20-40 solves;
- 21. the kernel report.
+ 21. the ``seq`` mesh (``parallel/``): S sequences split over two shards,
+     ``(cuda:0, cuda:1)`` with two cards or more, else cuda:0 twice (the
+     line says which), each shard with its own batched step graph;
+     (a) LK dense at full width, S = 4 copies of phase 6's 49 frames
+     through ``evaluate_batch``: per sequence ATE < 0.05 m and accept >=
+     0.95, one graph per shard (27 K1 per replay), K1 launched 1 + 27 x 48
+     per shard, each shard's replay as many nodes as a single-device S = 2
+     graph's, each shard's trajectories bit for bit those of a
+     single-device S = 2 run on its sequences with its draws; the
+     unsplit S = 4 run on one device with the same draws within 0.05 m
+     (phase 18's bound), its largest pose difference printed; aggregate
+     frames/s and each card's idle share of one profiled replay per shard;
+     (b) ``cell``, ``v1`` and ORB at S = 2 over the mesh on 16 frames,
+     within phases 8 and 7's bounds, launches per shard as at S = 1;
+     (c) ``probes/scaling.py``'s measurement (``--devices 1 --reps 2``, and
+     ``1 2`` with two cards): SCALING.json's keys, the JSON line printed;
+ 22. the kernel report.
 The launch counts hold without a reinit; each slice's run sets every
 count to 0 just before ``run_chunked`` (``run`` in phase 17,
-``evaluate_batch`` in phase 18, ``cli.main`` and the online feed in phase
-19, each bench row and the parity block in phase 20) and reads them just
-after. The second-to-last line is the kernel
+``evaluate_batch`` in phases 18 and 21, ``cli.main`` and the online feed in
+phase 19, each bench row and the parity block in phase 20) and reads them
+just after. The second-to-last line is the kernel
 report (JSON), the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -203,6 +220,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -619,7 +637,7 @@ def persistent_phase(mods, cam, frames, poses_gt) -> dict:
                      f"equal to the graph's bit for bit: {same}")
         del graphed, eager
         torch.cuda.empty_cache()
-    say("[16/21] " + "; ".join(lines))
+    say("[16/22] " + "; ".join(lines))
     return launches
 
 
@@ -654,7 +672,7 @@ def ba_leg_phase(mods, cam, frames, poses_gt, smi) -> tuple[dict, dict]:
     walls = {k: [1e3 * r["wall_s"] for r in leg[k]["solves"]]
              for k in ("ba_marg", "ba_drop_oldest")}
     k1 = [launches[f"ba_leg_{k}"]["extract_windows_int"] for k in leg]
-    say(f"[17/21] BA leg passes: ATE {fe:.4f} / {mg:.4f} / {dr:.4f} m, solves {n_solves}, "
+    say(f"[17/22] BA leg passes: ATE {fe:.4f} / {mg:.4f} / {dr:.4f} m, solves {n_solves}, "
           f"K1 launches {k1}")
     prof = profile_solve(torch, mods["profiling"], be_marg, mods["ba"])
     del be_marg
@@ -671,7 +689,7 @@ def ba_leg_phase(mods, cam, frames, poses_gt, smi) -> tuple[dict, dict]:
     del r
     med = lambda v: float(np.median(v)) if v else float("nan")
     orb_wall = med([1e3 * r["wall_s"] for r in orb_solves])
-    say(f"[17/21] BA leg on {smi}, System.run on cuda, {BA_FRAMES} frames 376x1241 "
+    say(f"[17/22] BA leg on {smi}, System.run on cuda, {BA_FRAMES} frames 376x1241 "
           f"padded to {H}x{W}, LK {N_POINTS} features, persistent tracks; ATE (not aligned) "
           f"frontend-only {fe:.4f} m, BA+marg {mg:.4f} m, drop-oldest {dr:.4f} m; accept "
           + ", ".join(f"{k} {v['accept']:.3f}" for k, v in leg.items())
@@ -758,7 +776,7 @@ def bench_phase(mods, frames, ba_passes, smi) -> dict:
             "orb": dict(zero, extract_windows_int=ORB_LAUNCHES_PER_FRAME * N_FRAMES,
                         extract_patches=ORB_LAUNCHES_PER_FRAME * N_FRAMES)}
     par = launches["bench_gpu_parity"]
-    say(f"[20/21] bench.py's card legs (probes/bench.py) on {smi}, {N_FRAMES} frames {H}x{W}: "
+    say(f"[20/22] bench.py's card legs (probes/bench.py) on {smi}, {N_FRAMES} frames {H}x{W}: "
         + "; ".join(f"{k} ATE {r['ate_m']} m, accept {r['accept_rate']}, n_tracked "
                     f"{r['n_tracked']}, {r['fps']} frames/s, launches "
                     f"{ {n: c for n, c in launches['bench_' + k].items() if c} }"
@@ -955,18 +973,18 @@ def slice4_phase(mods, cam, il, ir, poses_gt, bounds) -> tuple[dict, dict]:
     drive("ORB-batched-S2", VOConfig(mode="orb", height=H, width=W, max_features=ORB_FEATURES),
           BRANCH_FRAMES, 2, dict(zero, extract_windows_int=ORB_LAUNCHES_PER_FRAME * BRANCH_FRAMES,
                                  extract_patches=ORB_LAUNCHES_PER_FRAME * BRANCH_FRAMES), 0.07)
-    say("[18/21] slice 4, S sequences in one batched step graph (the same frames per "
+    say("[18/22] slice 4, S sequences in one batched step graph (the same frames per "
           "sequence, draws of their own): " + "; ".join(lines) + "; " + nodes)
 
     entries = batched_entries(mods, bounds)
-    say("[18/21] the batched entries (B = 3 sequences, other images per sequence) against "
+    say("[18/22] the batched entries (B = 3 sequences, other images per sequence) against "
           "their plain versions (K1, K2 exact; K3, K4 phase 5's criteria) and against B = 1 "
           "calls (bit for bit), one launch each; at B = 4 in a graph against 4 x B = 1: "
           + "; ".join(f"{k} ({v['entry']}) max err {v['max_abs_err']:.2e}, B=4 "
                       f"{1e3 * v['graph_ms_b4']:.2f} us against 4xB=1 "
                       f"{1e3 * v['graph_ms_4x1']:.2f} us, bound {1e3 * v['bound_ms_b4']:.3f} us"
                       for k, v in entries.items()))
-    say("[18/21] " + dist_solve(mods))
+    say("[18/22] " + dist_solve(mods))
     return launches, dict(entries, s4=s4, s1=s1)
 
 
@@ -1009,6 +1027,170 @@ def dist_solve(mods) -> str:
     return ("distributed BA on NCCL at world size 1 (HashStore) against bundle_adjust on "
             "cuda, the multi-process demo's problem (6 keyframes, 120 landmarks): "
             + "; ".join(parts))
+
+
+@contextlib.contextmanager
+def evaluator_draws(evaluate, record=None, feed=None):
+    """Inside: ``evaluate``'s RANSAC draws, one (S, num_hypotheses, 6) per
+    frame, taken from the iterator ``feed``, or drawn as usual (and
+    appended to ``record`` if given)."""
+    real = evaluate.pnp
+
+    def draw(*args, **kw):
+        if feed is not None:
+            return next(feed)
+        u = real.draw_uniforms(*args, **kw)
+        if record is not None:
+            record.append(u.clone())
+        return u
+
+    evaluate.pnp = types.SimpleNamespace(draw_uniforms=draw)
+    try:
+        yield
+    finally:
+        evaluate.pnp = real
+
+
+def mesh_phase(mods, cam, il, ir, poses_gt) -> dict:
+    """Phase 21: a sequence batch over a ``seq`` mesh of two shards (a, b)
+    and ``probes/scaling.py``'s measurement (c). Returns each path's
+    launches."""
+    np, torch, kernels, trajectory = mods["np"], mods["torch"], mods["kernels"], mods["trajectory"]
+    VOConfig, batched, sequences = mods["VOConfig"], mods["batched"], mods["sequences"]
+    evaluate, scaling = mods["evaluate"], mods["scaling"]
+    from stereo_visual_odometry_tpu_torch.parallel.mesh import Mesh
+    from stereo_visual_odometry_tpu_torch.utils.config import rig_from_config
+    cards = torch.cuda.device_count()
+    devs = tuple(torch.device("cuda", i if cards >= 2 else 0) for i in range(2))
+    mesh = Mesh(devs, "seq")
+    where = (f"two cards, {devs[0]} and {devs[1]}" if cards >= 2 else
+             f"one card, {devs[0]} twice")
+    rig = rig_from_config(cam, device=devs[0])
+    zero = dict.fromkeys(kernels, 0)
+    copies = lambda a, S: np.broadcast_to(a[None], (S,) + a.shape)
+    launches = {}
+
+    def run(vo, frames, S, on=None, record=None, feed=None):
+        """``evaluate_batch`` of S copies of the first ``frames`` bench
+        frames over ``on`` (a mesh, or cuda:0), its graphs captured first by
+        a 2-frame evaluation, the counts set to 0 just before and read just
+        after; returns (result, launches, one graph per shard)."""
+        sequences.clear()
+        torch.cuda.empty_cache()
+        evaluate.evaluate_batch(copies(il[:2], S), copies(ir[:2], S), np.full(S, 2), vo, rig,
+                                mesh=on)
+        reset_launches(kernels)
+        with evaluator_draws(evaluate, record, feed):
+            out = evaluate.evaluate_batch(copies(il[:frames], S), copies(ir[:frames], S),
+                                          np.full(S, frames), vo, rig, mesh=on)
+        counted = {k: fn.launches for k, fn in kernels.items()}
+        step = sequences.batched_frontend(vo, rig, S, mesh=on)[1]
+        steps = getattr(step, "shards", (step,))
+        return out, counted, [st.graph(S // len(steps)) for st in steps]
+
+    def check_run(tag, out, frames, max_ate):
+        ates = [trajectory.ate_rmse(t, poses_gt[:frames]) for t in out["trajectories"]]
+        check(all(len(t) == frames and np.isfinite(t).all() for t in out["trajectories"]),
+              f"{tag}: trajectories {[t.shape for t in out['trajectories']]}")
+        check(max(ates) < max_ate and min(out["accept_rate"]) >= 0.95,
+              f"{tag}: ATE {ates} (bound {max_ate} m), accept {out['accept_rate']} (>= 0.95)")
+        return ates
+
+    # (a) LK dense, S = 4 over the two shards.
+    lk_vo = VOConfig(height=H, width=W, max_features=N_POINTS)
+    S, per_shard = 4, 1 + LK_LAUNCHES_PER_STEP * (N_FRAMES - 1)
+    drawn = []
+    got, counted, graphs = run(lk_vo, N_FRAMES, S, mesh, record=drawn)
+    draws = torch.stack(drawn)  # (T - 1, S, num_hypotheses, 6) on the first shard's card
+    ates = check_run("mesh LK S=4", got, N_FRAMES, 0.05)
+    launches["mesh-LK-S4"] = counted
+    check(len(graphs) == 2 and graphs[0] is not graphs[1]
+          and [g.device for g in graphs] == list(devs)
+          and all(g.per_replay == {"extract_windows_int": LK_LAUNCHES_PER_STEP} for g in graphs),
+          f"mesh LK: graphs per shard {[(str(g.device), g.per_replay) for g in graphs]}")
+    check(counted == dict(zero, extract_windows_int=2 * per_shard),
+          f"mesh LK launches {counted}, want {per_shard} K1 per shard")
+    profiles = [batched.profile_replay(g.launch, device=g.device) for g in graphs]
+    nodes = [g.count_nodes() for g in graphs]
+    ms = 1e3 * got["wall_s"] / (N_FRAMES - 1)
+    busy = {}
+    for dev, prof in zip(devs, profiles):
+        busy[str(dev)] = busy.get(str(dev), 0.0) + prof["busy_ms"]
+    idle = {d: 1 - b / ms for d, b in busy.items()}
+    same = []
+    for i, rows in enumerate((slice(0, 2), slice(2, 4))):
+        want, n_want, g1 = run(lk_vo, N_FRAMES, 2, feed=iter(draws[:, rows].to(devs[0])))
+        equal = all(np.array_equal(a, b) for a, b in
+                    zip(got["trajectories"][rows], want["trajectories"], strict=True))
+        check(equal and got["accept_rate"][rows] == want["accept_rate"],
+              f"mesh LK shard {i}: not bit for bit the single-device S = 2 run (accept "
+              f"{got['accept_rate'][rows]} against {want['accept_rate']})")
+        check(n_want == dict(zero, extract_windows_int=per_shard),
+              f"single-device S = 2 launches {n_want}, want {per_shard} K1")
+        nodes1 = g1[0].count_nodes()
+        check(nodes[i] == nodes1 > 0, f"mesh LK shard {i}: {nodes[i]} graph nodes, a "
+              f"single-device S = 2 graph {nodes1}")
+        same.append(nodes1)
+    whole, _, _ = run(lk_vo, N_FRAMES, S, feed=iter(draws))
+    diff = max(float(np.abs(a[:, :3, 3] - b[:, :3, 3]).max())
+               for a, b in zip(got["trajectories"], whole["trajectories"], strict=True))
+    check(diff < 0.05, f"mesh LK against the unsplit S = 4 run: poses {diff} m apart "
+          "(bound 0.05 m)")
+    line_a = (f"(a) LK dense S={S} over {where}, evaluate_batch on {N_FRAMES} frames {H}x{W}: "
+              f"ATE " + "/".join(f"{a:.4f}" for a in ates) + " m, accept "
+              + "/".join(f"{a:.3f}" for a in got["accept_rate"])
+              + f", aggregate {got['frames_per_s']:.1f} frames/s, {ms:.2f} ms per batched "
+              f"frame; one graph per shard, {LK_LAUNCHES_PER_STEP} K1 per replay, K1 "
+              f"{counted['extract_windows_int']} in the run ({per_shard} per shard); graph nodes "
+              f"{nodes} (single-device S=2: {same}; profiled "
+              f"{[p['nodes'] for p in profiles]}); busy ms "
+              f"per replay {[round(p['busy_ms'], 3) for p in profiles]}, idle per card "
+              + ", ".join(f"{d} {v:.3f}" for d, v in idle.items())
+              + "; each shard bit for bit a single-device S=2 run with its draws; the unsplit "
+              f"S=4 run {diff:.3e} m apart (aggregate {whole['frames_per_s']:.1f} frames/s)")
+    del got, whole, graphs
+
+    # (b) cell, v1 and ORB at S = 2 over the two shards, 16 frames.
+    parts = []
+    for name, vo, want1, max_ate in (
+            ("cell", VOConfig(lk_kernel="cell", height=H, width=W, max_features=N_POINTS),
+             dict(zero, extract_windows_int=BRANCH_FRAMES,
+                  level_track_cell=LK_LEVELS_PER_STEP * (BRANCH_FRAMES - 1)), 0.05),
+            ("v1", VOConfig(lk_kernel="v1", height=H, width=W, max_features=N_POINTS),
+             dict(zero, extract_windows_int=BRANCH_FRAMES,
+                  level_track_v1=LK_LEVELS_PER_STEP * (BRANCH_FRAMES - 1)), 0.05),
+            ("ORB", VOConfig(mode="orb", height=H, width=W, max_features=ORB_FEATURES),
+             dict(zero, extract_windows_int=ORB_LAUNCHES_PER_FRAME * BRANCH_FRAMES,
+                  extract_patches=ORB_LAUNCHES_PER_FRAME * BRANCH_FRAMES), 0.07)):
+        out, n, _ = run(vo, BRANCH_FRAMES, 2, mesh)
+        a = check_run(f"mesh {name} S=2", out, BRANCH_FRAMES, max_ate)
+        want = {k: 2 * v for k, v in want1.items()}
+        check(n == want, f"mesh {name} launches {n}, want {want} (per shard as at S = 1)")
+        launches[f"mesh-{name}-S2"] = n
+        parts.append(f"{name} ATE " + "/".join(f"{x:.4f}" for x in a) + " m, accept "
+                     + "/".join(f"{x:.3f}" for x in out["accept_rate"])
+                     + f", {out['frames_per_s']:.1f} frames/s, launches "
+                     f"{ {k: v for k, v in n.items() if v} }")
+    sequences.clear()
+    torch.cuda.empty_cache()
+    say("[21/22] the seq mesh: " + line_a + f"; (b) S=2 over {where}, {BRANCH_FRAMES} frames: "
+        + "; ".join(parts))
+
+    # (c) probes/scaling.py's measurement.
+    ns = ["1", "2"] if cards >= 2 else ["1"]
+    result = scaling.measure(scaling.parse(["--devices", *ns, "--reps", "2"]))
+    schema = json.loads((ROOT / "SCALING.json").read_text())
+    check(set(schema) <= set(result) and all(
+        [r["devices"] for r in result[axis]] == [int(n) for n in ns]
+        and all(set(schema[axis][0]) <= set(r) for r in result[axis])
+        for axis in ("seq_sharding", "dist_ba")),
+        f"probes/scaling.py's result lacks SCALING.json's keys: {sorted(result)}")
+    check(all(r["cost_final"] < r["cost_initial"] and r["backend"] == "nccl"
+              for r in result["dist_ba"]), f"scaling BA rows {result['dist_ba']}")
+    say(f"[21/22] (c) probes/scaling.py --devices {' '.join(ns)} --reps 2 on cuda: the line "
+        "follows")
+    print(json.dumps(result), flush=True)
+    return launches
 
 
 SLICE5_RAW = (376, 1241)  # the bench frames' native size, as KITTI's
@@ -1181,7 +1363,7 @@ def slice5_phase(mods, cam, il, ir, poses_gt) -> tuple[dict, dict]:
             np.array_equal(l, pad(a)) and np.array_equal(r, pad(b))
             for (l, r), a, b in zip(frames, raw_l, raw_r)),
               f"the {ds.decoder} decoder's frames differ from the written bytes")
-        say(f"[19/21] slice 5 on a KITTI directory of {N_FRAMES} frames {h}x{w} (8-bit PNGs "
+        say(f"[19/22] slice 5 on a KITTI directory of {N_FRAMES} frames {h}x{w} (8-bit PNGs "
             f"by zlib): {has_line}; the dataset decodes with {ds.decoder!r}, "
             f"{decode_ms:.2f} ms per pair (padded to {SLICE5_HW}), frames equal to the "
             "written bytes")
@@ -1202,7 +1384,7 @@ def slice5_phase(mods, cam, il, ir, poses_gt) -> tuple[dict, dict]:
                          f"N) {k1s}, {len(calls['extract_patches'])} K2 calls on (h, w, P, "
                          f"N) {k2s}")
         k1_err = max(e[0] for e in errs.values())
-        say(f"[19/21] K1 and K2 vs plain on the calls of one eager tracked step at "
+        say(f"[19/22] K1 and K2 vs plain on the calls of one eager tracked step at "
             f"{SLICE5_HW}: " + "; ".join(parts) + f": max abs err K1 {k1_err}, K2 "
             f"{errs['ORB'][1]} (tolerance 0)")
 
@@ -1347,7 +1529,7 @@ def slice5_phase(mods, cam, il, ir, poses_gt) -> tuple[dict, dict]:
                      f"bit for bit: {same_v}; overlay arrays on the host {shapes}; PNGs "
                      + (f"{len(pngs)}" if has["matplotlib"] else
                         "absent (no matplotlib: draw_tracks writes nothing, as in JAX)"))
-        say("[19/21] the command line on cuda (python -m stereo_visual_odometry_tpu_torch.cli, "
+        say("[19/22] the command line on cuda (python -m stereo_visual_odometry_tpu_torch.cli, "
             "in process; counts set to 0 before each call): " + "; ".join(lines))
         del sys_a, sys_c, sys_o, sys_b, sys_v, made
         torch.cuda.empty_cache()
@@ -1446,7 +1628,7 @@ def slice5_phase(mods, cam, il, ir, poses_gt) -> tuple[dict, dict]:
                   f"of {BURST} into maxlen=2: {len(got)} stepped, {burst.dropped} dropped, the "
                   f"longest push {longest * 1e3:.3f} ms; after close() the workers alive: "
                   f"{vo._worker.is_alive()} / {burst._worker.is_alive()}")
-        say("[19/21] " + "; ".join((c_line, d_line, e_line)))
+        say("[19/22] " + "; ".join((c_line, d_line, e_line)))
         del sys_e
         torch.cuda.empty_cache()
     finally:
@@ -1468,7 +1650,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
     kind = torch.cuda.get_device_name(0)
-    say(f"[1/21] device: {kind} x{torch.cuda.device_count()}, torch "
+    say(f"[1/22] device: {kind} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, cuda {torch.version.cuda}")
     print(smi)
 
@@ -1520,7 +1702,7 @@ def main() -> int:
     roll.launcher()
     bind_s = time.perf_counter() - t0
     cxx = native.extension_command("roll_binding")[0]
-    say(f"[2/21] kernel library {lib_path.name} {how} in {build_s:.2f}s; K7 binding "
+    say(f"[2/22] kernel library {lib_path.name} {how} in {build_s:.2f}s; K7 binding "
           f"{ext_path.name} {how_ext} with {cxx} (no ninja) in {bind_s:.2f}s; "
           f"ptxas: {'; '.join(ptxas)}")
 
@@ -1545,7 +1727,7 @@ def main() -> int:
         check(err == 0.0, f"K1 disagrees with its plain version at {(hp, wp, S, n)}: "
               f"max abs err {err}")
         k1_err = max(k1_err, err)
-    say(f"[3/21] K1 vs plain at {len(K1_SHAPES)} LK shapes (N={N_POINTS}), the XLA "
+    say(f"[3/22] K1 vs plain at {len(K1_SHAPES)} LK shapes (N={N_POINTS}), the XLA "
           f"tracker's S=64/36 windows, {len(orb_maps)} ORB score maps (S=3, "
           f"N=budget) and N={K1_RAGGED} at S=24, (5, 7), (64, 36) ({len(k1_cases)} "
           f"cases): max abs err {k1_err} (tolerance 0: a copy)")
@@ -1574,7 +1756,7 @@ def main() -> int:
             bits_p = orb.brief_bits_from_patches(want, None)
             bit_flips += int((bits_k != bits_p).sum())
     check(bit_flips == 0, f"K2's patches give {bit_flips} other BRIEF bits")
-    say(f"[4/21] K2 vs plain (on the padded image, and the clamped plain version) at "
+    say(f"[4/22] K2 vs plain (on the padded image, and the clamped plain version) at "
           f"{len(ORB_LEVELS)} ORB level shapes (P={ORB_PATCH}, N={ORB_BUDGETS}), P=31 at "
           f"levels 0-1, and centres up to 2 px outside on all four sides at levels 0, 3, "
           f"6 for P={ORB_PATCH}/31 and N={K2_RAGGED} ({len(k2_cases)} cases): max abs err "
@@ -1607,7 +1789,7 @@ def main() -> int:
     empty = [no_points(torch, name, kernels, lk_bool, lambda name=name: lk_fn[name](
         args[0], args[1], args[2][:0], args[3][:0], pad=PAD, active=active[:0]))
         for name in ("cell", "v1")]
-    say(f"[5/21] K3 (cell) and K4 (v1) vs plain (kernel against plain), N={N_POINTS}, "
+    say(f"[5/22] K3 (cell) and K4 (v1) vs plain (kernel against plain), N={N_POINTS}, "
           f"win {WIN}, 30 iters, {int(active.sum())} active: " + "; ".join(lines)
           + f"; N = 0, empty and no launch counted: {', '.join(empty)}")
 
@@ -1625,14 +1807,14 @@ def main() -> int:
     launches = {}
     lk, launches["lk"] = run(VOConfig(**lk_vo), "LK")
     want = dict(zero, extract_windows_int=1 + LK_LAUNCHES_PER_STEP * (N_FRAMES - 1))
-    say("[6/21] " + describe_slice("LK", lk, launches["lk"], want))
+    say("[6/22] " + describe_slice("LK", lk, launches["lk"], want))
     check_slice("LK", lk, launches["lk"], want, 0.05, 0.95)
 
     orb_cfg = VOConfig(mode="orb", height=H, width=W, max_features=ORB_FEATURES)
     ob, launches["orb"] = run(orb_cfg, "ORB")
     want = dict(zero, extract_windows_int=ORB_LAUNCHES_PER_FRAME * N_FRAMES,
                 extract_patches=ORB_LAUNCHES_PER_FRAME * N_FRAMES)
-    say("[7/21] " + describe_slice("ORB", ob, launches["orb"], want))
+    say("[7/22] " + describe_slice("ORB", ob, launches["orb"], want))
     check_slice("ORB", ob, launches["orb"], want, 0.07, 0.95)
 
     # 8. The LK slice on K3 and on K4 ---------------------------------------
@@ -1645,7 +1827,7 @@ def main() -> int:
                                     want))
         check_slice(f"LK-{name}", r, launches[f"lk_{name}"], want, 0.05, 0.95)
         lines[-1] += f"; {lk['ms_frame'] / r['ms_frame']:.2f}x the dense LK ms/frame"
-    say("[8/21] " + "; ".join(lines) + f" (dense: {lk['ms_frame']:.2f} ms/frame)")
+    say("[8/22] " + "; ".join(lines) + f" (dense: {lk['ms_frame']:.2f} ms/frame)")
 
     # 9. The kernel-free LK branches on the first 16 frames -------------------
     lines = []
@@ -1658,7 +1840,7 @@ def main() -> int:
                                     BRANCH_FRAMES))
         check_slice(f"LK-{tag}", r, launches[f"lk_{tag}"], want, 0.15, 0.9,
                     ate="ate_from_1")
-    say("[9/21] " + "; ".join(lines))
+    say("[9/22] " + "; ".join(lines))
 
     # 10. K5 and K6 vs plain, and vs the K3 and K4 kernels ---------------------
     lines = []
@@ -1740,7 +1922,7 @@ def main() -> int:
         lines.append(line)
     empty = [no_points(torch, name, kernels, lk_bool, lambda name=name: lk_fn[name](
         args[0], args[1], args[2][:0], args[3][:0], pad=PAD)) for name in ("block", "v2")]
-    say(f"[10/21] K5 (block) and K6 (v2) vs plain (K3's and K4's plain versions) and "
+    say(f"[10/22] K5 (block) and K6 (v2) vs plain (K3's and K4's plain versions) and "
           f"vs the K3/K4 kernels, N={N_POINTS}, win {WIN}, 30 iters, K5 with phase 5's "
           f"mask, K6's wrapper on every point and its bare entry with the mask: "
           + "; ".join(lines)
@@ -1791,7 +1973,7 @@ def main() -> int:
             refused.append(str(e).split(",")[0])
         check(roll.roll.launches == before, "K7 counted a launch for a refused input")
     check(len(refused) == 2, f"K7 took a float64 or a 3-D input: {refused}")
-    say(f"[11/21] K7 through its binding vs plain (torch.roll) over {k7_cases} cases: axis "
+    say(f"[11/22] K7 through its binding vs plain (torch.roll) over {k7_cases} cases: axis "
           f"0 and 1, ({probe_roll.ROWS[0]}..{probe_roll.ROWS[-1]}, {probe_roll.COLS}), amounts "
           f"0, 1, 3, 7, 9 (axis 0) / 100 (axis 1), -1, the axis length and + 5, and on the "
           f"one-element kernel (37, 255) and a (128, 256) view 4 bytes off alignment: max abs "
@@ -1822,7 +2004,7 @@ def main() -> int:
     k8_node = {label: one_node(torch, profiling, f"K8 {label}",
                                lambda label=label: lk_breakdown.run_variant(label, probe_in))
                for label in lk_breakdown.VARIANTS}
-    say(f"[12/21] K8 vs plain at {tuple(probe_in['prev'].shape)}, N={len(probe_in['pts'])}: "
+    say(f"[12/22] K8 vs plain at {tuple(probe_in['prev'].shape)}, N={len(probe_in['pts'])}: "
           + ", ".join(f"{lb} relative error {k8[lb]['rel_err']:.2e} (max abs "
                       f"{k8[lb]['abs_err']:.3g})" for lb in split_labels)
           + f" (tolerance 1e-4: sums in another order); full equals K5's output bit for "
@@ -1861,7 +2043,7 @@ def main() -> int:
     probe_t = probe_block.timing_ms(probe_in)
     k8_graph = lk_breakdown.timing_ms(probe_in)
     k8_split = lk_breakdown.split(k8_graph)
-    say("[13/21] probes (launches read after each run: "
+    say("[13/22] probes (launches read after each run: "
           + ", ".join(f"{p} {({k: v for k, v in launches[p].items() if v})}"
                       for p in probe_paths) + "): "
           + "; ".join(probe_block.describe(probe_out["probe_lk_block"], probe_t))
@@ -1966,7 +2148,7 @@ def main() -> int:
                 f"{us(t['library_graph_ms'])} (max diff {t['library_max_diff']}), bound "
                 f"{b_ms * 1e3:.3f} us ({b_by}), wrapper host time {t['host_us']:.2f} us")
 
-    say("[14/21] K3-K6 (probes/lk_timing.py; graphs of "
+    say("[14/22] K3-K6 (probes/lk_timing.py; graphs of "
           f"{lk_timing.GRAPH_CALLS} calls; staged share at margins {lk_timing.MARGINS}, "
           f"shipped {lk_v1.STAGE_MARGIN}; K6's wrapper on every point, one device op "
           f"(phase 10), its kernel alone with the mask): " + "; ".join(
@@ -1982,15 +2164,15 @@ def main() -> int:
               f"(largest {us(b['kernel_graph_ms_max'])}), iterations {b['iters']}, staged "
               f"share {b['staged_share']}"
               for k, b in lkt["bench"].items()))
-    say("[14/21] host time per K1 wrapper call, us (perf_counter over "
+    say("[14/22] host time per K1 wrapper call, us (perf_counter over "
           f"{patch_timing.HOST_CALLS} calls, no sync): "
           + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
-    say("[14/21] host time per K7 call, us (the same way): "
+    say("[14/22] host time per K7 call, us (the same way): "
           + ", ".join(f"{k} {v:.3f}" for k, v in k7_host.items())
           + f"; in a graph of {patch_timing.GRAPH_CALLS} calls, in turns: one row "
           f"{us(pt['k7']['one_row_graph_ms'])} (K7's practical floor), "
           f"{patch_timing.K7_SHAPE} {us(pt['k7']['graph_ms_beside_one_row'])}")
-    say(f"[14/21] CUDA events, {patch_timing.B2B_CALLS} calls each (5 for the LK plain "
+    say(f"[14/22] CUDA events, {patch_timing.B2B_CALLS} calls each (5 for the LK plain "
           f"versions), and CUDA graphs of {patch_timing.GRAPH_CALLS} calls: "
           + patch_line(f"K1 S={S} N={N_POINTS} on {patch_timing.K1_SHAPE[:2]}", "k1",
                        k1_plain, k1_bound, k1_by, "grid_sample(nearest)") + "; "
@@ -2039,9 +2221,9 @@ def main() -> int:
                                      fr[-1]))
         del eager, graphed
         torch.cuda.empty_cache()  # the graph's pool
-    say("[15/21] eager against graph, System.run_chunked in turns (eager, then graph; "
+    say("[15/22] eager against graph, System.run_chunked in turns (eager, then graph; "
           "steady ms/frame after the first chunk): " + "; ".join(lines))
-    say("[15/21] one profiled step per path (eager: step_fn; graph: one replay; device "
+    say("[15/22] one profiled step per path (eager: step_fn; graph: one replay; device "
           "ops = kernels, copies and fills; idle = 1 - busy / wall): " + "; ".join(profiles))
 
     # 16-17. Slice 3: persistent tracks, the BA leg ------------------------
@@ -2077,7 +2259,13 @@ def main() -> int:
     mods.update(bench=bench)
     launches.update(bench_phase(mods, (il, ir, poses_gt), ba_passes, smi))
 
-    # 21. Kernel report ---------------------------------------------------
+    # 21. The seq mesh: a sequence batch split over two shards -----------------
+    from stereo_visual_odometry_tpu_torch.parallel import evaluate
+    from stereo_visual_odometry_tpu_torch.probes import scaling
+    mods.update(evaluate=evaluate, scaling=scaling)
+    launches.update(mesh_phase(mods, cam, il, ir, poses_gt))
+
+    # 22. Kernel report ---------------------------------------------------
     src = "stereo_visual_odometry_tpu_torch/csrc/"
     by_path = lambda name: {p: ln[name] for p, ln in launches.items()}
     timed_keys = ("ms", "graph_ms", "library_ms", "library_graph_ms", "library_max_diff")
@@ -2130,7 +2318,7 @@ def main() -> int:
             entry["batched"] = s4[entry["name"]]
         entry["launches_by_path"] = by_path(entry["name"])
         entry["launches"] = sum(entry["launches_by_path"].values())
-    say(f"[21/21] kernel report and result ({time.perf_counter() - t_start:.1f} s since the "
+    say(f"[22/22] kernel report and result ({time.perf_counter() - t_start:.1f} s since the "
           "start)")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,10 @@ Launch counts: the kernel wrappers count in Python, so a replay counts
 nothing itself. Each counter's increase during the capture is the graph's
 launches per replay (``per_replay``); the warm-up's and the capture's own
 increases are taken out, and every replay adds ``per_replay``, so the
-counters read as they do eagerly.
+counters read as they do eagerly. ``count_nodes`` reads a replay's node
+count from a throwaway capture of the same step (a graph that keeps its
+node list is not kept: destroying one while another stream captures
+invalidates that capture).
 
 There is no fallback: a failed capture or replay raises, and so does a
 replay with a pair of another shape or dtype than the captured one.
@@ -55,6 +58,21 @@ KERNELS = (patch.extract_windows_int, patch.extract_patches, lk_cell.level_track
 
 def _counts() -> list[int]:
     return [fn.launches for fn in KERNELS]
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The nodes of a graph captured with ``keep_graph=True``
+    (``cuGraphGetNodes``)."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = (ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t))
+    cu.cuGraphGetNodes.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    err = cu.cuGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return n.value
 
 
 class StepGraph:
@@ -122,7 +140,10 @@ class StepGraph:
             torch.cuda.current_stream(dev).wait_stream(side)
             warm = _counts()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            # On the side stream of this device: ``torch.cuda.graph``'s
+            # default capture stream is made once per process, on whichever
+            # device was current then.
+            with torch.cuda.graph(graph, stream=side):
                 self._buffer_step(self.state, self.img_l, self.img_r, self.u, self.out)
             per_replay = {fn.__name__: c - w for fn, c, w in zip(KERNELS, _counts(), warm)
                           if c != w}
@@ -133,32 +154,56 @@ class StepGraph:
         self._graph, self.key = graph, key
         self.capture_s = time.perf_counter() - t0
 
+    def count_nodes(self) -> int:
+        """The nodes of one replay: the captured step captured once more on
+        the same buffers into a throwaway graph that keeps its node list
+        (``cuGraphGetNodes``), destroyed before this returns. The device
+        work of a replay, whatever a profiler records."""
+        if self._graph is None:
+            raise RuntimeError("nothing captured yet: call replay with a frame first")
+        before = _counts()
+        try:
+            with torch.cuda.device(self.device):
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                with torch.cuda.graph(graph, stream=side):
+                    self._buffer_step(self.state, self.img_l, self.img_r, self.u, self.out)
+                return graph_nodes(graph)
+        finally:
+            for fn, n in zip(KERNELS, before):
+                fn.launches = n
+
     def replay(self, img_l, img_r, u: torch.Tensor) -> dict:
         """One frame: copy the pair (numpy or tensors) and the draws ``u``
         into the static inputs, replay the graph (capturing it on the first
         call), and return the ``out`` buffers (valid until the next
-        replay)."""
+        replay). The capture and the replay run with the graph's device
+        current, whichever device the caller's is (a shard of a mesh on
+        another card)."""
         key, img_l, img_r = self._pair_key(img_l, img_r)
         if u.shape != self.u_shape or u.dtype != torch.float32:
             raise ValueError(f"u must be float32 {self.u_shape}, got {u.dtype} "
                              f"{tuple(u.shape)}")
-        if self._graph is None:
-            self._capture(key, img_l, img_r)
-        elif key != self.key:
-            raise ValueError(f"this graph was captured for a {self.key[3]} pair of shape "
-                             f"{self.key[2]}, got {key[3]} {key[2]}")
-        else:
-            self.img_l.copy_(img_l)
-            self.img_r.copy_(img_r)
-        self.u.copy_(u)
-        return self.launch()
+        with torch.cuda.device(self.device):
+            if self._graph is None:
+                self._capture(key, img_l, img_r)
+            elif key != self.key:
+                raise ValueError(f"this graph was captured for a {self.key[3]} pair of shape "
+                                 f"{self.key[2]}, got {key[3]} {key[2]}")
+            else:
+                self.img_l.copy_(img_l)
+                self.img_r.copy_(img_r)
+            self.u.copy_(u)
+            return self.launch()
 
     def launch(self) -> dict:
         """Replay the captured graph on the inputs it holds (``replay``
         copies a frame in first); returns the ``out`` buffers."""
         if self._graph is None:
             raise RuntimeError("nothing captured yet: call replay with a frame first")
-        self._graph.replay()
+        with torch.cuda.device(self.device):
+            self._graph.replay()
         for fn in KERNELS:
             fn.launches += self.per_replay.get(fn.__name__, 0)
         return self.out

@@ -60,6 +60,7 @@ def set_pattern(kind: str = "learned") -> None:
 # Circular-patch mask and coordinate grids for IC_Angle (radius HALF_PATCH).
 _yy, _xx = np.mgrid[-HALF_PATCH:HALF_PATCH + 1, -HALF_PATCH:HALF_PATCH + 1]
 _circle = (_xx ** 2 + _yy ** 2) <= HALF_PATCH ** 2
+IC_MASK = _circle.astype(np.float32)
 IC_X = (_xx * _circle).astype(np.float32)
 IC_Y = (_yy * _circle).astype(np.float32)
 

@@ -1,4 +1,4 @@
-"""Batched multi-sequence evaluation: S sequences in one step on one card.
+"""Batched multi-sequence evaluation: S sequences in one step per card.
 
 Port of ``stereo_visual_odometry_tpu/parallel/evaluate.py`` (BASELINE.json
 config 4 as a user-facing entry point): S sequences advance in lockstep through
@@ -8,6 +8,12 @@ its graph are kept per (config, rig, device, S) (``sequences.batched_frontend``,
 dropped by ``sequences.clear()``). Sequences of different lengths are padded
 with their last frame and masked out of the returned trajectories.
 
+Over a ``seq`` mesh of n (``mesh.make_mesh(n)``) the batch splits into n
+shards of S/n sequences, one per mesh device, each with its own graph: a
+chunk's frames go to each shard's device (only its sequences), every
+shard's chunk is queued before the host reads any result, and then T_21
+and accept come back from every shard at once (one wait per device).
+
 Streaming: only (S, chunk, H, W) frame blocks exist in host memory at a
 time, loaded by a worker thread while the previous chunk runs (double
 buffering). The pose chain is composed on the host in float64 from each
@@ -15,11 +21,13 @@ frame's T_21 and accept, as JAX's is.
 
 RANSAC draws: one ``torch.Generator`` per evaluation, seeded with ``seed``,
 draws the (S, num_hypotheses, 6) uniforms of each frame
-(``pnp.draw_uniforms``); JAX splits ``PRNGKey(seed)`` into S keys instead,
-so the two packages draw other numbers from the same seed.
+(``pnp.draw_uniforms``) on the first shard's device, sliced per shard, so a
+split run sees the draws of the unsplit one; JAX splits ``PRNGKey(seed)``
+into S keys instead, so the two packages draw other numbers from the same
+seed.
 
-Entry points run on ``device="cuda"`` (the mesh's device when one is given)
-and raise without a GPU; ``device="cpu"`` runs on the CPU, eagerly.
+Entry points run on ``device="cuda"`` (the mesh's devices when one is
+given) and raise without a GPU; ``device="cpu"`` runs on the CPU, eagerly.
 """
 from __future__ import annotations
 
@@ -33,9 +41,9 @@ import torch
 from ..ops import pnp
 from ..ops.camera import StereoRig
 from ..utils import trajectory as traj_mod
-from ..utils.hostcopy import device_get_tree
 from . import sequences
-from .mesh import Mesh, single_device
+from .mesh import Mesh, shard_devices
+
 
 def _compose_chunk(cur: np.ndarray, T21: np.ndarray, acc: np.ndarray,
                    poses: list) -> np.ndarray:
@@ -49,34 +57,17 @@ def _compose_chunk(cur: np.ndarray, T21: np.ndarray, acc: np.ndarray,
     return cur
 
 
-def _resolve(mesh: Mesh | None, device) -> torch.device:
-    dev = single_device(mesh, device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"evaluating on {str(dev)!r} needs an NVIDIA GPU and "
-                               "torch.cuda.is_available() is False; pass device='cpu' to "
-                               "run on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def _run_streaming(load_chunk: Callable[[int, int], tuple[np.ndarray, np.ndarray]],
                    S: int, T: int, lengths: np.ndarray, cfg, rig: StereoRig,
                    mesh: Mesh | None, chunk: int, seed: int, device):
     """The evaluation loop: double-buffered chunk loads feeding the batched
-    step."""
-    dev = _resolve(mesh, device)
-    init_fn, step_fn, _ = sequences.batched_frontend(cfg, rig, S, device=dev)
-
-    def put(x) -> torch.Tensor:
-        if not isinstance(x, torch.Tensor):  # a writable copy of a read-only view
-            x = torch.from_numpy(np.require(x, requirements=("C", "W")))
-        return x.to(dev)
+    step (one per shard over a mesh)."""
+    devs = shard_devices(mesh, device)
+    init_fn, step_fn, place = sequences.batched_frontend(cfg, rig, S, mesh=mesh, device=device)
 
     il0, ir0 = load_chunk(0, 1)
-    state = init_fn(put(il0[:, 0]), put(ir0[:, 0]))
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    state = init_fn(place(il0[:, 0]), place(ir0[:, 0]))
+    generator = torch.Generator(device=devs[0]).manual_seed(seed)
 
     starts = list(range(1, T, chunk))
     cur = np.tile(np.eye(4), (S, 1, 1))
@@ -86,8 +77,9 @@ def _run_streaming(load_chunk: Callable[[int, int], tuple[np.ndarray, np.ndarray
         trajs = [np.stack(poses, axis=1)[s, : int(lengths[s])] for s in range(S)]
         return {"trajectories": trajs, "accept_rate": [0.0] * S,
                 "frames_per_s": 0.0, "wall_s": 0.0}
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    for dev in dict.fromkeys(devs):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
         fut = pool.submit(load_chunk, starts[0], min(starts[0] + chunk, T))
@@ -97,10 +89,10 @@ def _run_streaming(load_chunk: Callable[[int, int], tuple[np.ndarray, np.ndarray
                 nxt = starts[i + 1]
                 fut = pool.submit(load_chunk, nxt, min(nxt + chunk, T))
             n = il_c.shape[1]
-            u = torch.stack([pnp.draw_uniforms(cfg.num_hypotheses, generator, device=dev,
+            u = torch.stack([pnp.draw_uniforms(cfg.num_hypotheses, generator, device=devs[0],
                                                batch=S) for _ in range(n)], dim=1)
-            state, m = sequences.run_chunk_scan(step_fn, state, put(il_c), put(ir_c), u)
-            got = device_get_tree({"T_21": m["T_21"], "accept": m["accept"]})
+            state, m = sequences.run_chunk_scan(step_fn, state, place(il_c), place(ir_c), u)
+            got = sequences.gather(m, ("T_21", "accept"), axis=1)
             T21 = got["T_21"].astype(np.float64)      # (T_chunk, S, 4, 4)
             acc = got["accept"]                       # (T_chunk, S)
             cur = _compose_chunk(cur, T21, acc, poses)
@@ -128,8 +120,9 @@ def evaluate_batch(images_l: np.ndarray, images_r: np.ndarray, lengths: np.ndarr
       images_l / images_r: (S, T_max, H, W) frame batches (short sequences
         padded by repeating their last frame).
       lengths: (S,) true sequence lengths.
-      cfg: VOConfig; rig: the shared camera rig, on the device; mesh: an
-        optional one-device ``seq`` mesh; device: without a mesh.
+      cfg: VOConfig; rig: the shared camera rig, on the (first) device;
+        mesh: an optional ``seq`` mesh of n devices, S a multiple of n
+        (else ``ValueError``); device: without a mesh.
 
     Returns:
       dict(trajectories: list of (length_s, 4, 4) world_from_camera arrays,

@@ -29,19 +29,19 @@ import torch
 H, W, FEATURES = 384, 1280, 1024
 
 
-def profile_replay(launch, tries: int = 3) -> dict:
-    """One profiled call of ``launch`` (a graph replay) from an idle device:
-    device ops (nodes), busy ms and the host's wall ms. A profile that
-    recorded no device op (CUPTI now and then records nothing) is taken
-    again, up to ``tries`` times."""
+def profile_replay(launch, tries: int = 3, device=None) -> dict:
+    """One profiled call of ``launch`` (a graph replay on ``device``, the
+    current card if None) from an idle device: device ops (nodes), busy ms
+    and the host's wall ms. A profile that recorded no device op (CUPTI now
+    and then records nothing) is taken again, up to ``tries`` times."""
     from ..utils import profiling
     act, wall = {"ops": 0, "busy_ms": 0.0, "span_ms": 0.0, "names": {}}, 0.0
     for _ in range(tries):
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         with profiling.trace(None) as prof:
             launch()
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(device)
         wall = 1e3 * (time.perf_counter() - t0)
         act = profiling.device_activity(prof)
         if act["ops"]:

@@ -9,6 +9,9 @@ Slice 5: the command line at KITTI's shape (384x1248) counting K1, the
 online feed's worker capturing the graph, a checkpoint from the card
 loading on the CPU and back.
 
+The ``seq`` mesh: two shards on one card, each capturing its own batched
+step graph, each bit for bit a single-device run at its batch size.
+
 Marked ``cuda``; each skips without a GPU (decided inside the test). This
 file imports neither JAX nor the JAX package, so it runs on a machine with
 a card and no JAX:
@@ -1367,6 +1370,84 @@ def test_evaluate_batch_defaults_to_cuda():
     step = sequences.batched_frontend(vo, rig, 2)[1]
     assert step.device.type == "cuda" and step.graph(2).per_replay
     assert min(out["accept_rate"]) >= 0.5
+
+
+def _mesh_inputs(n_frames=4, S=4):
+    """S synthetic sequences at 192x256 as host arrays, the small LK config
+    and its rig on cuda:0."""
+    from stereo_visual_odometry_tpu_torch.utils.config import rig_from_config
+    seqs = [synthetic.render_sequence(n_frames=n_frames, h=192, w=256, fx=300.0, seed=s)
+            for s in range(S)]
+    rp = seqs[0]["rig"]
+    cam = CameraConfig(fx=300.0, fy=300.0, cx=rp["cx"], cy=rp["cy"], baseline=rp["baseline"])
+    vo = VOConfig(height=192, width=256, max_features=256, num_hypotheses=128,
+                  min_features_track=8, min_inlier_rate=0.3)
+    il = np.stack([s["images_l"] for s in seqs]).astype(np.float32)
+    ir = np.stack([s["images_r"] for s in seqs]).astype(np.float32)
+    return il, ir, vo, rig_from_config(cam, device="cuda:0")
+
+
+def test_mesh_shards_capture_their_own_graphs_on_one_card():
+    """A ``seq`` mesh naming cuda:0 twice: two shards, each with its own
+    batched step graph captured on cuda:0 (27 K1 per replay, as unsplit),
+    its replays bit for bit the eager sharded step on the same draws."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.parallel import sequences
+    from stereo_visual_odometry_tpu_torch.parallel.mesh import Mesh
+    il, ir, vo, rig = _mesh_inputs()
+    two = Mesh((torch.device("cuda", 0),) * 2, "seq")
+    init, step, place = sequences.make_batched_frontend(vo, rig, two)
+    u = torch.rand(4, il.shape[1] - 1, vo.num_hypotheses, 6, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(5))
+    runs = {}
+    for graph in (True, False):
+        state = init(place(il[:, 0]), place(ir[:, 0]))
+        runs[graph] = sequences.run_chunk_scan(step, state, place(il[:, 1:]), place(ir[:, 1:]),
+                                               u, graph=graph)
+    graphs = [s.graph(2) for s in step.shards]
+    assert graphs[0] is not graphs[1]
+    assert all(g.device == torch.device("cuda", 0) for g in graphs)
+    assert [g.per_replay for g in graphs] == [{"extract_windows_int": 27}] * 2
+    assert graphs[0].count_nodes() == graphs[1].count_nodes() > 0
+    for (sg, mg), (se, me) in zip(zip(*runs[True]), zip(*runs[False]), strict=True):
+        for k in mg:
+            assert torch.equal(mg[k], me[k]), k
+        assert torch.equal(sg["T_wc"], se["T_wc"])
+    got = sequences.gather(runs[True][0], ("T_wc",))["T_wc"]
+    assert got.shape == (4, 4, 4) and np.isfinite(got).all()
+
+
+def test_mesh_shard_equals_single_device_run(monkeypatch):
+    """``evaluate_batch`` over (cuda:0, cuda:0) with S = 4: each shard's
+    trajectories and accept rates equal a single-device S = 2 run's on its
+    sequences with its draws, bit for bit."""
+    need_cuda()
+    import types
+    from stereo_visual_odometry_tpu_torch.parallel import evaluate, sequences
+    from stereo_visual_odometry_tpu_torch.parallel.mesh import Mesh
+    il, ir, vo, rig = _mesh_inputs(n_frames=5)
+    lengths = np.array([5, 4, 5, 3])
+    draws = torch.rand(il.shape[1] - 1, 4, vo.num_hypotheses, 6, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(9))
+
+    def feed(rows):
+        frames = iter(draws[:, rows])
+        monkeypatch.setattr(evaluate, "pnp", types.SimpleNamespace(
+            draw_uniforms=lambda *a, **k: next(frames)))
+
+    sequences.clear()
+    feed(slice(0, 4))
+    got = evaluate.evaluate_batch(il, ir, lengths, vo, rig, chunk=2,
+                                  mesh=Mesh((torch.device("cuda", 0),) * 2, "seq"))
+    for half in (slice(0, 2), slice(2, 4)):
+        sequences.clear()
+        feed(half)
+        want = evaluate.evaluate_batch(il[half], ir[half], lengths[half], vo, rig, chunk=2)
+        for a, b in zip(got["trajectories"][half], want["trajectories"], strict=True):
+            np.testing.assert_array_equal(a, b)
+        assert got["accept_rate"][half] == want["accept_rate"]
+    assert min(got["accept_rate"]) >= 0.5
+    sequences.clear()
 
 
 # ---- slice 5: the command line, the online feed, checkpoint/resume ------------ #

@@ -67,6 +67,7 @@ def test_pattern_table_and_sampling_matrices_equal_jax():
     np.testing.assert_array_equal(orb._bin_diff_np(False), all_bins)
     np.testing.assert_array_equal(orb._bin_diff_np(True), all_bins[:1])
     np.testing.assert_array_equal(orb._make_pattern(), jorb._make_pattern())
+    np.testing.assert_array_equal(orb.IC_MASK, jorb.IC_MASK)
     np.testing.assert_array_equal(orb.IC_X, jorb.IC_X)
     np.testing.assert_array_equal(orb.IC_Y, jorb.IC_Y)
 

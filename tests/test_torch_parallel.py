@@ -322,18 +322,25 @@ def test_kitti_module_equals_jax(tmp_path):
 def test_meshes():
     m = mesh.make_mesh(platform="cpu", axis="ba")
     assert m.devices == (torch.device("cpu"),) and m.axis == "ba" and m.size == 1
-    with pytest.raises(ValueError, match="need 2 devices on platform=cpu, have 1"):
-        mesh.make_mesh(2, platform="cpu")
+    two = mesh.make_mesh(2, platform="cpu")  # n CPU shards, as JAX's virtual host devices
+    assert two.devices == (torch.device("cpu"),) * 2 and two.axis == "seq" and two.size == 2
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="platform=default, have 0"):
             mesh.make_mesh()
     assert mesh.shard_leading(m, "seq") == mesh.Sharding(m, "seq")
     assert mesh.replicated(m).axis is None
     assert mesh.single_device(m, "cuda") == torch.device("cpu")
-    two = mesh.Mesh((torch.device("cpu"), torch.device("cpu")), "seq")
-    with pytest.raises(ValueError, match="one device"):
-        sequences.make_batched_frontend(tfront.VOConfig(**SMALL), port_rig(
-            make_batch(1, 1)[3]), two)
+    with pytest.raises(ValueError, match="takes one device"):
+        mesh.single_device(two, "cuda")
+    # A 2-device mesh splits the batch: one frontend per shard, S/2 sequences each.
+    il, ir, _, rp = make_batch(2, 1)
+    init, step, place = sequences.make_batched_frontend(tfront.VOConfig(**SMALL), port_rig(rp),
+                                                        two)
+    parts = place(il[:, 0])
+    assert isinstance(parts, sequences.Shards) and [p.shape[0] for p in parts] == [1, 1]
+    torch.testing.assert_close(parts[1], torch.from_numpy(il[1:, 0]), rtol=0, atol=0)
+    state = init(parts, place(ir[:, 0]))
+    assert isinstance(step, sequences.ShardedStep) and len(state) == len(step.shards) == 2
 
 
 def test_batched_frontend_cache():
