@@ -14,7 +14,9 @@ captures in global mode, so producers must hand frames as host arrays and
 make no CUDA calls of their own). A step that raises ends the worker, and
 ``poll`` and ``close`` raise its error. ``close`` stops the worker after
 the step it is in (pairs still queued are not stepped) and waits for it
-to exit, so no thread is left inside CUDA.
+to exit, so no thread is left inside CUDA. While a span recorder is on
+(``utils/profiling``), a pair's wait in the queue is an ``online.queue``
+span, from the put to the worker's get, whose request id its step shares.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from .system import System
+from ..utils import profiling
 from ..utils.logging import get_logger
 
 
@@ -91,8 +94,9 @@ class OnlineVO:
                     mine.pop(min(mine))
 
     def _enqueue(self, ts, img_l, img_r) -> None:
+        queued = profiling.begin("online.queue")  # ends at the worker's get
         try:
-            self._q.put_nowait((ts, img_l, img_r))
+            self._q.put_nowait((ts, img_l, img_r, queued))
         except queue.Full:
             self.dropped += 1  # drop-oldest-producer policy: skip this frame
 
@@ -104,10 +108,12 @@ class OnlineVO:
                 torch.cuda.set_device(self._cuda_index)
             while not self._stop.is_set():
                 try:
-                    ts, il, ir = self._q.get(timeout=0.1)
+                    ts, il, ir, queued = self._q.get(timeout=0.1)
                 except queue.Empty:
                     continue
-                m = self.system.step_online(il, ir)
+                profiling.end(queued)
+                with profiling.within(queued):  # the step shares the pair's request id
+                    m = self.system.step_online(il, ir)
                 m["ts"] = ts
                 self._results.put(m)
         except Exception as e:  # handed to the caller by poll / close

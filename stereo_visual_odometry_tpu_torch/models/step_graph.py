@@ -28,6 +28,10 @@ count from a throwaway capture of the same step (a graph that keeps its
 node list is not kept: destroying one while another stream captures
 invalidates that capture).
 
+Spans (``utils/profiling``): ``graph.capture`` (the warm-up and capture,
+whose host seconds are ``capture_s``), ``graph.replay`` and, inside it,
+``graph.launch`` with a CUDA event pair around the replay (its device ms).
+
 There is no fallback: a failed capture or replay raises, and so does a
 replay with a pair of another shape or dtype than the captured one.
 
@@ -42,12 +46,11 @@ per frame as at S = 1.
 """
 from __future__ import annotations
 
-import time
-
 import torch
 
 from . import frontend as frontend_mod
 from ..ops import lk_block, lk_cell, lk_v1, lk_v2, patch, pnp, roll
+from ..utils import profiling
 from ..utils.tree import tree_map
 
 # The wrappers of K1-K8, each counting its launches in ``.launches``.
@@ -91,7 +94,7 @@ class StepGraph:
         self.state = None
         self.key = None  # (cfg, overlays, pair shape, pair dtype) once captured
         self.per_replay: dict[str, int] = {}  # wrapper name -> launches per replay
-        self.capture_s = 0.0  # warm-up and capture, host seconds
+        self.capture_s = 0.0  # warm-up and capture, host seconds (the graph.capture span)
         self._graph = None
         # The draws of one replay: (num_hypotheses, 6), S-leading with a batch.
         self.u_shape = ((() if batch is None else (batch,))
@@ -116,7 +119,11 @@ class StepGraph:
     def _capture(self, key, img_l, img_r) -> None:
         if self.state is None:
             raise RuntimeError("load a state (load_state) before the first replay")
-        t0 = time.perf_counter()
+        with profiling.measure("graph.capture") as took:
+            self._warm_and_capture(key, img_l, img_r)
+        self.capture_s = took.seconds
+
+    def _warm_and_capture(self, key, img_l, img_r) -> None:
         dev = self.device
         self.img_l = torch.empty(img_l.shape, dtype=img_l.dtype, device=dev).copy_(img_l)
         self.img_r = torch.empty(img_r.shape, dtype=img_r.dtype, device=dev).copy_(img_r)
@@ -152,7 +159,6 @@ class StepGraph:
                 fn.launches = n
         self.per_replay = per_replay
         self._graph, self.key = graph, key
-        self.capture_s = time.perf_counter() - t0
 
     def count_nodes(self) -> int:
         """The nodes of one replay: the captured step captured once more on
@@ -185,7 +191,7 @@ class StepGraph:
         if u.shape != self.u_shape or u.dtype != torch.float32:
             raise ValueError(f"u must be float32 {self.u_shape}, got {u.dtype} "
                              f"{tuple(u.shape)}")
-        with torch.cuda.device(self.device):
+        with torch.cuda.device(self.device), profiling.span("graph.replay"):
             if self._graph is None:
                 self._capture(key, img_l, img_r)
             elif key != self.key:
@@ -202,7 +208,7 @@ class StepGraph:
         copies a frame in first); returns the ``out`` buffers."""
         if self._graph is None:
             raise RuntimeError("nothing captured yet: call replay with a frame first")
-        with torch.cuda.device(self.device):
+        with torch.cuda.device(self.device), profiling.span("graph.launch", timed=True):
             self._graph.replay()
         for fn in KERNELS:
             fn.launches += self.per_replay.get(fn.__name__, 0)

@@ -26,6 +26,9 @@ split run sees the draws of the unsplit one; JAX splits ``PRNGKey(seed)``
 into S keys instead, so the two packages draw other numbers from the same
 seed.
 
+A pass, its init and each chunk's stages are spans (``evaluate.*``;
+``utils/profiling.span``), recorded while a recorder is on.
+
 Entry points run on ``device="cuda"`` (the mesh's devices when one is
 given) and raise without a GPU; ``device="cpu"`` runs on the CPU, eagerly.
 """
@@ -40,6 +43,7 @@ import torch
 
 from ..ops import pnp
 from ..ops.camera import StereoRig
+from ..utils import profiling
 from ..utils import trajectory as traj_mod
 from . import sequences
 from .mesh import Mesh, shard_devices
@@ -62,53 +66,67 @@ def _run_streaming(load_chunk: Callable[[int, int], tuple[np.ndarray, np.ndarray
                    mesh: Mesh | None, chunk: int, seed: int, device):
     """The evaluation loop: double-buffered chunk loads feeding the batched
     step (one per shard over a mesh)."""
-    devs = shard_devices(mesh, device)
-    init_fn, step_fn, place = sequences.batched_frontend(cfg, rig, S, mesh=mesh, device=device)
+    with profiling.span("evaluate.pass"):
+        devs = shard_devices(mesh, device)
+        init_fn, step_fn, place = sequences.batched_frontend(cfg, rig, S, mesh=mesh, device=device)
 
-    il0, ir0 = load_chunk(0, 1)
-    state = init_fn(place(il0[:, 0]), place(ir0[:, 0]))
-    generator = torch.Generator(device=devs[0]).manual_seed(seed)
+        il0, ir0 = load_chunk(0, 1)
+        with profiling.span("evaluate.init"):
+            state = init_fn(place(il0[:, 0]), place(ir0[:, 0]))
+        generator = torch.Generator(device=devs[0]).manual_seed(seed)
 
-    starts = list(range(1, T, chunk))
-    cur = np.tile(np.eye(4), (S, 1, 1))
-    poses = [cur.copy()]
-    accepts = []
-    if not starts:  # T == 1: init only, nothing to track
-        trajs = [np.stack(poses, axis=1)[s, : int(lengths[s])] for s in range(S)]
-        return {"trajectories": trajs, "accept_rate": [0.0] * S,
-                "frames_per_s": 0.0, "wall_s": 0.0}
-    for dev in dict.fromkeys(devs):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        fut = pool.submit(load_chunk, starts[0], min(starts[0] + chunk, T))
-        for i, start in enumerate(starts):
-            il_c, ir_c = fut.result()
-            if i + 1 < len(starts):
-                nxt = starts[i + 1]
-                fut = pool.submit(load_chunk, nxt, min(nxt + chunk, T))
-            n = il_c.shape[1]
-            u = torch.stack([pnp.draw_uniforms(cfg.num_hypotheses, generator, device=devs[0],
-                                               batch=S) for _ in range(n)], dim=1)
-            state, m = sequences.run_chunk_scan(step_fn, state, place(il_c), place(ir_c), u)
-            got = sequences.gather(m, ("T_21", "accept"), axis=1)
-            T21 = got["T_21"].astype(np.float64)      # (T_chunk, S, 4, 4)
-            acc = got["accept"]                       # (T_chunk, S)
-            cur = _compose_chunk(cur, T21, acc, poses)
-            accepts.append(acc)
-    wall = time.perf_counter() - t0
+        starts = list(range(1, T, chunk))
+        cur = np.tile(np.eye(4), (S, 1, 1))
+        poses = [cur.copy()]
+        accepts = []
+        if not starts:  # T == 1: init only, nothing to track
+            trajs = [np.stack(poses, axis=1)[s, : int(lengths[s])] for s in range(S)]
+            return {"trajectories": trajs, "accept_rate": [0.0] * S,
+                    "frames_per_s": 0.0, "wall_s": 0.0}
+        for dev in dict.fromkeys(devs):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            fut = pool.submit(load_chunk, starts[0], min(starts[0] + chunk, T))
+            for i, start in enumerate(starts):
+                with profiling.span("evaluate.chunk"):
+                    with profiling.span("evaluate.load_wait"):
+                        il_c, ir_c = fut.result()
+                    if i + 1 < len(starts):
+                        nxt = starts[i + 1]
+                        fut = pool.submit(load_chunk, nxt, min(nxt + chunk, T))
+                    n = il_c.shape[1]
+                    with profiling.span("evaluate.draws"):
+                        u = torch.stack([pnp.draw_uniforms(cfg.num_hypotheses, generator,
+                                                           device=devs[0], batch=S)
+                                         for _ in range(n)], dim=1)
+                    with profiling.span("evaluate.upload"):
+                        il_d, ir_d = place(il_c), place(ir_c)
+                    with profiling.span("evaluate.replays"):
+                        state, m = sequences.run_chunk_scan(step_fn, state, il_d, ir_d, u)
+                    # The chunk's device copies go back to the allocator once
+                    # their replays are queued, not after the next upload.
+                    del il_d, ir_d
+                    with profiling.span("evaluate.fetch"):
+                        got = sequences.gather(m, ("T_21", "accept"), axis=1)
+                    with profiling.span("evaluate.compose"):
+                        T21 = got["T_21"].astype(np.float64)      # (T_chunk, S, 4, 4)
+                        acc = got["accept"]                       # (T_chunk, S)
+                        cur = _compose_chunk(cur, T21, acc, poses)
+                    accepts.append(acc)
+        wall = time.perf_counter() - t0
 
-    all_poses = np.stack(poses, axis=1)               # (S, T, 4, 4)
-    acc = np.concatenate(accepts, axis=0)             # (T-1, S)
-    trajs = [all_poses[s, : int(lengths[s])] for s in range(S)]
-    total_frames = int(np.sum(lengths) - S)
-    return {
-        "trajectories": trajs,
-        "accept_rate": [float(acc[: int(lengths[s]) - 1, s].mean()) for s in range(S)],
-        "frames_per_s": total_frames / wall if wall > 0 else 0.0,
-        "wall_s": wall,
-    }
+        all_poses = np.stack(poses, axis=1)               # (S, T, 4, 4)
+        acc = np.concatenate(accepts, axis=0)             # (T-1, S)
+        trajs = [all_poses[s, : int(lengths[s])] for s in range(S)]
+        total_frames = int(np.sum(lengths) - S)
+        return {
+            "trajectories": trajs,
+            "accept_rate": [float(acc[: int(lengths[s]) - 1, s].mean()) for s in range(S)],
+            "frames_per_s": total_frames / wall if wall > 0 else 0.0,
+            "wall_s": wall,
+        }
 
 
 def evaluate_batch(images_l: np.ndarray, images_r: np.ndarray, lengths: np.ndarray, cfg,

@@ -6,15 +6,240 @@ as a reusable context manager, ``torch.profiler`` trace capture in place of
 replay). On the card the timers read CUDA events on the current stream and
 wait on their own end event, not on the whole device; on the CPU they read
 the wall clock. Both run on the card unless the caller asks for the CPU.
+
+Spans: the program marks its stages with ``span(name)``. The module's one
+timing record is ``Span`` (name, start and end on ``time.perf_counter_ns``,
+its own id, its parent's, a request id shared by every span under one root,
+and the thread it ran on); ``StageTimer`` keeps its stages as ``Span`` too.
+Spans are recorded only between ``record()`` and the recorder's ``take()``:
+otherwise ``span`` returns one shared no-op context and allocates nothing.
+While recording, a span also opens a host range of its name whenever a
+``torch.profiler`` records on its thread, so it sits in the profiler's
+trace beside the device ops, on the profiler's clock. The range is the
+profiler's plain host-op kind (``_RecordFunctionFast``), not a
+``record_function`` user annotation: the profiler mirrors each annotation
+onto the device as an event spanning every kernel launched inside it,
+which a reading of device busy time would count as device work. A span
+opened with ``timed=True`` records a CUDA event pair on the current
+stream around its block, read into ``device_ms`` only at ``take()``.
+
+The spans the port records: ``evaluate.{pass,init,chunk,load_wait,draws,
+upload,replays,fetch,compose}`` (``parallel/evaluate.py``),
+``run_chunked.{chunk,upload,sync,replays,fetch,unpack}`` and
+``system.{step,fetch}`` (``models/system.py``), ``online.queue``
+(``models/online.py``: from a pair's put to the worker's get, across
+threads, ``begin``/``end``) and ``graph.{replay,launch,capture}``
+(``models/step_graph.py``; ``graph.launch`` timed).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import itertools
 import os
+import threading
 import time
 from collections import defaultdict
 
 import torch
+
+MAX_SPANS = 200_000    # a recorder keeps at most this many; it counts the rest
+
+
+@dataclasses.dataclass(slots=True, eq=False)
+class Span:
+    """One timed interval of the program: ``start_ns``/``end_ns`` on
+    ``time.perf_counter_ns``; ``id``, ``parent`` (None at a root) and
+    ``request`` (the root's id, or the one ``within`` hands on) as a
+    recorder numbers them; ``thread`` (``threading.get_ident``); and
+    ``device_ms``, the device time between a CUDA event pair around it
+    where it has one (``events``, read at ``take()``)."""
+
+    name: str
+    start_ns: int
+    end_ns: int | None = None
+    id: int = 0
+    parent: int | None = None
+    request: int | None = None
+    thread: int = 0
+    device_ms: float | None = None
+    events: tuple | None = None
+
+    @property
+    def seconds(self) -> float:
+        """The span's time: its device time where it has one, else host."""
+        if self.device_ms is not None:
+            return self.device_ms / 1e3
+        return (self.end_ns - self.start_ns) / 1e9
+
+    def as_dict(self) -> dict:
+        return {"name": self.name, "start_ns": self.start_ns, "end_ns": self.end_ns,
+                "id": self.id, "parent": self.parent, "request": self.request,
+                "thread": self.thread, "device_ms": self.device_ms}
+
+
+def summary(spans) -> dict[str, dict]:
+    """Per span name: ``total_s`` (the sum of ``Span.seconds``), ``calls``
+    and ``mean_ms``."""
+    totals: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    for sp in spans:
+        totals[sp.name] = totals.get(sp.name, 0.0) + sp.seconds
+        counts[sp.name] = counts.get(sp.name, 0) + 1
+    return {k: {"total_s": totals[k], "calls": counts[k],
+                "mean_ms": 1e3 * totals[k] / counts[k]} for k in totals}
+
+
+class Recorder:
+    """The spans recorded from ``record()`` to ``take()``, in memory, at
+    most ``MAX_SPANS`` of them (``dropped`` counts the rest). Spans may
+    close on any thread."""
+
+    def __init__(self):
+        self.dropped = 0
+        self._spans: list[Span] = []
+        self._ids = itertools.count(1)
+        self._lock = threading.Lock()
+
+    def _open(self, name: str) -> Span:
+        """A span starting now, a child of the innermost span open on this
+        thread (else a root, of the request ``within`` set, or its own)."""
+        stack = _stack()
+        sid = next(self._ids)
+        if stack:
+            parent, request = stack[-1].id, stack[-1].request
+        else:
+            parent, request = None, getattr(_local, "request", None) or sid
+        return Span(name, time.perf_counter_ns(), id=sid, parent=parent, request=request,
+                    thread=threading.get_ident())
+
+    def _keep(self, sp: Span) -> None:
+        with self._lock:
+            if len(self._spans) < MAX_SPANS:
+                self._spans.append(sp)
+            else:
+                self.dropped += 1
+
+    def take(self) -> list[dict]:
+        """Stop recording (if this is the recorder on) and return every
+        span kept, as dicts (``Span.as_dict``), each event pair read into
+        ``device_ms`` (waiting for its end event)."""
+        global _recorder
+        if _recorder is self:
+            _recorder = None
+        with self._lock:
+            spans, self._spans = self._spans, []
+        for sp in spans:
+            if sp.events is not None:
+                start, end = sp.events
+                end.synchronize()
+                sp.device_ms, sp.events = start.elapsed_time(end), None
+        return [sp.as_dict() for sp in spans]
+
+
+_recorder: Recorder | None = None      # the recorder on, if any
+_local = threading.local()             # per thread: the open spans, a request id
+_NULL = contextlib.nullcontext()
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def record() -> Recorder:
+    """Start a fresh recorder (replacing any recorder on); its ``take()``
+    stops it and returns its spans."""
+    global _recorder
+    _recorder = Recorder()
+    return _recorder
+
+
+@contextlib.contextmanager
+def _recorded(rec: Recorder, name: str, timed: bool):
+    sp = rec._open(name)
+    stack = _stack()
+    stack.append(sp)
+    ranged = None
+    if torch._C._autograd._profiler_enabled():
+        ranged = torch._C._profiler._RecordFunctionFast(name)
+        ranged.__enter__()
+    if timed:
+        sp.events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        sp.events[0].record()
+    sp.start_ns = time.perf_counter_ns()
+    try:
+        yield sp
+    finally:
+        if timed:
+            sp.events[1].record()
+        sp.end_ns = time.perf_counter_ns()
+        if ranged is not None:
+            ranged.__exit__(None, None, None)
+        stack.pop()
+        rec._keep(sp)
+
+
+def span(name: str, timed: bool = False):
+    """Context manager: the block as a span named ``name`` while a recorder
+    is on, else a shared no-op. ``timed``: also a CUDA event pair on the
+    current stream around the block (its ``device_ms``; a card must be
+    there)."""
+    rec = _recorder
+    if rec is None:
+        return _NULL
+    return _recorded(rec, name, timed)
+
+
+@contextlib.contextmanager
+def measure(name: str):
+    """The block as a span named ``name``, recorded or not: yields the
+    ``Span``, whose ``end_ns`` is set when the block ends (a stage whose
+    time the program keeps whether a recorder is on or not)."""
+    rec = _recorder
+    if rec is not None:
+        with _recorded(rec, name, False) as sp:
+            yield sp
+        return
+    sp = Span(name, time.perf_counter_ns())
+    try:
+        yield sp
+    finally:
+        sp.end_ns = time.perf_counter_ns()
+
+
+def begin(name: str) -> Span | None:
+    """Open a span that ``end`` closes, on any thread (a wait from one
+    thread to another); None while no recorder is on. No profiler range."""
+    rec = _recorder
+    return None if rec is None else rec._open(name)
+
+
+def end(sp: Span | None) -> None:
+    """Close ``begin``'s span and keep it, if a recorder is still on."""
+    rec = _recorder
+    if sp is None or rec is None:
+        return
+    sp.end_ns = time.perf_counter_ns()
+    rec._keep(sp)
+
+
+@contextlib.contextmanager
+def _adopted(request: int):
+    before = getattr(_local, "request", None)
+    _local.request = request
+    try:
+        yield
+    finally:
+        _local.request = before
+
+
+def within(sp: Span | None):
+    """Context manager: the root spans this thread opens inside it take
+    ``sp``'s request id (a no-op for None)."""
+    return _NULL if sp is None else _adopted(sp.request)
 
 
 def _device(device) -> torch.device:
@@ -47,25 +272,26 @@ def _clock(device: torch.device, out: list):
 
 class StageTimer:
     """Accumulates the time of each named stage, up to the end of its
-    device work."""
+    device work: each stage a ``Span`` (in ``spans``) whose ``device_ms``
+    is the CUDA events' reading on the card."""
 
     def __init__(self, device="cuda"):
         self.device = _device(device)
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
+        self.spans: list[Span] = []
 
     @contextlib.contextmanager
     def stage(self, name: str):
         took = []
+        sp = Span(name, time.perf_counter_ns())
         with _clock(self.device, took):
             yield
-        self.totals[name] += took[0]
-        self.counts[name] += 1
+        sp.end_ns = time.perf_counter_ns()
+        if self.device.type == "cuda":
+            sp.device_ms = 1e3 * took[0]
+        self.spans.append(sp)
 
     def summary(self) -> dict[str, dict]:
-        return {k: {"total_s": self.totals[k], "calls": self.counts[k],
-                    "mean_ms": 1e3 * self.totals[k] / max(self.counts[k], 1)}
-                for k in self.totals}
+        return summary(self.spans)
 
     def report(self) -> str:
         rows = sorted(self.summary().items(), key=lambda kv: -kv[1]["total_s"])
