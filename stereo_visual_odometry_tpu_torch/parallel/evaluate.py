@@ -15,9 +15,21 @@ shard's chunk is queued before the host reads any result, and then T_21
 and accept come back from every shard at once (one wait per device).
 
 Streaming: only (S, chunk, H, W) frame blocks exist in host memory at a
-time, loaded by a worker thread while the previous chunk runs (double
-buffering). The pose chain is composed on the host in float64 from each
-frame's T_21 and accept, as JAX's is.
+time, loaded by a worker thread. A chunk reaches the card ahead of the
+replays that read it: with chunk i's replays queued, the host hands chunk
+i + 1 to the card and only then waits for chunk i's results, so chunk
+i + 1 uploads while chunk i runs; only a pass's first chunk is uploaded
+before any replay. On cuda each shard stages through its
+``sequences.Staging``, kept with the frontends until
+``sequences.clear()``: the worker copies the chunk's host view straight
+into the pinned buffer, the copy into device slot (i + 1) % 2 is queued
+without waiting on the shard's copy stream, and the compute stream waits
+for it (an event) before the chunk's first replay. The host refills the
+pinned buffer only once the uploads queued from it have read it, and the
+copy stream overwrites a device slot only after the replays that last
+read it. On the CPU a chunk is placed as it is (``sequences.to_device``),
+in the same order. The pose chain is composed on the host in float64 from
+each frame's T_21 and accept, as JAX's is.
 
 RANSAC draws: one ``torch.Generator`` per evaluation, seeded with ``seed``,
 draws the (S, num_hypotheses, 6) uniforms of each frame
@@ -27,13 +39,20 @@ into S keys instead, so the two packages draw other numbers from the same
 seed.
 
 A pass, its init and each chunk's stages are spans (``evaluate.*``;
-``utils/profiling.span``), recorded while a recorder is on.
+``utils/profiling.span``), recorded while a recorder is on:
+``evaluate.upload`` is the serial upload of a pass's first chunk,
+``evaluate.prefetch`` chunk i + 1's, made between chunk i's
+``evaluate.replays`` and ``evaluate.fetch`` (on cuda timed on the first
+shard's copy stream: its device time runs from its opening to the end of
+that shard's copy); each holds its ``evaluate.load_wait``.
 
 Entry points run on ``device="cuda"`` (the mesh's devices when one is
 given) and raise without a GPU; ``device="cpu"`` runs on the CPU, eagerly.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
@@ -61,11 +80,67 @@ def _compose_chunk(cur: np.ndarray, T21: np.ndarray, acc: np.ndarray,
     return cur
 
 
+@dataclasses.dataclass
+class _Chunk:
+    """A chunk of ``n`` frames in staging slot ``slot``; ``il`` and ``ir``
+    its frames on the devices once placed (``place``'s form)."""
+
+    n: int
+    slot: int
+    il: object = None
+    ir: object = None
+
+
+class _Uploads:
+    """A pass's chunks on their way to the shards' devices. On cuda each
+    shard stages through its ``sequences.Staging`` for chunks of ``shape``
+    (S per shard, chunk, H, W): ``stage`` (the loader's thread) fills the
+    pinned buffers, ``upload`` queues the copies into the chunk's device
+    slot and returns its frames, ``ready`` / ``done`` bracket the replays
+    that read them. On the CPU ``stage`` places the chunk and the rest do
+    nothing."""
+
+    def __init__(self, devs, place, shape: tuple, dtype):
+        self.place = place
+        self.parts = ([sequences.staging(dev, i, shape, dtype) for i, dev in enumerate(devs)]
+                      if devs[0].type == "cuda" else [])
+
+    def stage(self, j: int, il, ir) -> _Chunk:
+        chunk = _Chunk(il.shape[1], j % 2)
+        if not self.parts:
+            chunk.il, chunk.ir = self.place(il), self.place(ir)
+            return chunk
+        n = len(self.parts)
+        for part, l, r in zip(self.parts, sequences.split(il, n), sequences.split(ir, n)):
+            part.fill(l, r)
+        return chunk
+
+    def upload(self, chunk: _Chunk) -> _Chunk:
+        if self.parts:
+            pairs = [part.upload(chunk.slot, chunk.n) for part in self.parts]
+            chunk.il, chunk.ir = (pairs[0] if len(pairs) == 1
+                                  else (sequences.Shards(x) for x in zip(*pairs)))
+        return chunk
+
+    def ready(self, chunk: _Chunk) -> None:
+        for part in self.parts:
+            part.ready(chunk.slot)
+
+    def done(self, chunk: _Chunk) -> None:
+        for part in self.parts:
+            part.done(chunk.slot)
+
+    def copy_stream(self):
+        """The first shard's copy stream made current (a no-op on the CPU)."""
+        return torch.cuda.stream(self.parts[0].stream) if self.parts else contextlib.nullcontext()
+
+
 def _run_streaming(load_chunk: Callable[[int, int], tuple[np.ndarray, np.ndarray]],
                    S: int, T: int, lengths: np.ndarray, cfg, rig: StereoRig,
                    mesh: Mesh | None, chunk: int, seed: int, device):
-    """The evaluation loop: double-buffered chunk loads feeding the batched
-    step (one per shard over a mesh)."""
+    """The evaluation loop: chunks loaded on a worker thread and uploaded
+    one ahead of the batched step's replays (one step per shard over a
+    mesh)."""
     with profiling.span("evaluate.pass"):
         devs = shard_devices(mesh, device)
         init_fn, step_fn, place = sequences.batched_frontend(cfg, rig, S, mesh=mesh, device=device)
@@ -83,31 +158,50 @@ def _run_streaming(load_chunk: Callable[[int, int], tuple[np.ndarray, np.ndarray
             trajs = [np.stack(poses, axis=1)[s, : int(lengths[s])] for s in range(S)]
             return {"trajectories": trajs, "accept_rate": [0.0] * S,
                     "frames_per_s": 0.0, "wall_s": 0.0}
+        uploads = _Uploads(devs, place, (S // len(devs), min(chunk, T - 1)) + il0.shape[2:],
+                           il0.dtype)
+
+        def load(j):
+            start = starts[j]
+            return uploads.stage(j, *load_chunk(start, min(start + chunk, T)))
+
         for dev in dict.fromkeys(devs):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         with ThreadPoolExecutor(max_workers=1) as pool:
-            fut = pool.submit(load_chunk, starts[0], min(starts[0] + chunk, T))
-            for i, start in enumerate(starts):
+            pending = pool.submit(load, 0)
+
+            def upload(j):
+                """Chunk j's copies queued (its load waited for), then chunk
+                j + 1's load begun: it refills the pinned buffers once they
+                have been read."""
+                nonlocal pending
+                with profiling.span("evaluate.load_wait"):
+                    staged = pending.result()
+                frames = uploads.upload(staged)
+                if j + 1 < len(starts):
+                    pending = pool.submit(load, j + 1)
+                return frames
+
+            for i in range(len(starts)):
                 with profiling.span("evaluate.chunk"):
-                    with profiling.span("evaluate.load_wait"):
-                        il_c, ir_c = fut.result()
-                    if i + 1 < len(starts):
-                        nxt = starts[i + 1]
-                        fut = pool.submit(load_chunk, nxt, min(nxt + chunk, T))
-                    n = il_c.shape[1]
+                    if i == 0:
+                        with profiling.span("evaluate.upload"):
+                            frames = upload(0)
                     with profiling.span("evaluate.draws"):
                         u = torch.stack([pnp.draw_uniforms(cfg.num_hypotheses, generator,
                                                            device=devs[0], batch=S)
-                                         for _ in range(n)], dim=1)
-                    with profiling.span("evaluate.upload"):
-                        il_d, ir_d = place(il_c), place(ir_c)
+                                         for _ in range(frames.n)], dim=1)
                     with profiling.span("evaluate.replays"):
-                        state, m = sequences.run_chunk_scan(step_fn, state, il_d, ir_d, u)
-                    # The chunk's device copies go back to the allocator once
-                    # their replays are queued, not after the next upload.
-                    del il_d, ir_d
+                        uploads.ready(frames)
+                        state, m = sequences.run_chunk_scan(step_fn, state, frames.il,
+                                                            frames.ir, u)
+                        uploads.done(frames)
+                    if i + 1 < len(starts):
+                        with uploads.copy_stream(), profiling.span(
+                                "evaluate.prefetch", timed=bool(uploads.parts)):
+                            frames = upload(i + 1)
                     with profiling.span("evaluate.fetch"):
                         got = sequences.gather(m, ("T_21", "accept"), axis=1)
                     with profiling.span("evaluate.compose"):

@@ -35,8 +35,16 @@ queues every shard's replay of frame t before frame t+1 and syncs nothing,
 so the cards run side by side and only the host's launches are serial.
 The draws of a split batch come from one generator for all S, sliced per
 shard: a split run sees the unsplit run's draws.
+
+``Staging`` is one shard's way onto a card for frame chunks: a pinned host
+buffer, two device slots and a copy stream, so that one chunk uploads
+while the replays read the other (``parallel/evaluate.py``);
+``staging`` keeps one per (device, shard position, chunk shape, dtype)
+until ``clear()``.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -54,6 +62,8 @@ from .mesh import Mesh, shard_devices
 # graph once replayed (``batched_frontend``). The position keeps two shards on
 # one device apart: each has its own graph and state buffers.
 _cache: dict = {}
+# (device, shard position, chunk shape, dtype) -> that shard's ``Staging``.
+_staging: dict = {}
 
 
 class Shards(tuple):
@@ -108,8 +118,75 @@ def rig_on(rig: StereoRig, dev: torch.device) -> StereoRig:
 
 def clear() -> None:
     """Drop every batched frontend ``batched_frontend`` keeps, and with each
-    its step's CUDA graph and the graph's memory pool."""
+    its step's CUDA graph and the graph's memory pool, and every
+    ``Staging`` that ``staging`` keeps."""
     _cache.clear()
+    _staging.clear()
+
+
+class Staging:
+    """One shard's frame chunks on their way to a card: a pinned host buffer,
+    two device slots and a copy stream of its own, each buffer holding a
+    chunk's left and right frames (``shape`` = (S, chunk, H, W) each; a
+    chunk of n <= chunk frames is one contiguous prefix).
+
+    ``fill(il, ir)`` (any thread) copies a host chunk into the pinned
+    buffer, first waiting for every upload queued so far to have read it;
+    ``upload(k, n)`` queues the copy of the pinned buffer into device slot k
+    on the copy stream, ordered after the compute stream's last read of
+    slot k (``done``), and returns slot k's frames without waiting;
+    ``ready(k)`` orders the device's current (compute) stream after that
+    copy, ``done(k)`` marks the end of its reads of slot k. One pinned
+    buffer is enough: chunk i + 1 is filled while chunk i's replays run,
+    long after chunk i's copy has left it."""
+
+    def __init__(self, dev: torch.device, shape: tuple, dtype: torch.dtype):
+        self.device, self.shape = dev, tuple(shape)
+        size = 2 * math.prod(shape)
+        self.stream = torch.cuda.Stream(dev)
+        self.host = torch.empty(size, dtype=dtype, pin_memory=True)
+        self.dev = [torch.empty(size, dtype=dtype, device=dev) for _ in range(2)]
+        for buf in self.dev:  # written on the copy stream: freed only once its copies are done
+            buf.record_stream(self.stream)
+        self.copied = [torch.cuda.Event() for _ in range(2)]
+        self.read = [torch.cuda.Event() for _ in range(2)]
+
+    def _pair(self, buf: torch.Tensor, n: int) -> tuple:
+        S, _, H, W = self.shape
+        m = S * n * H * W
+        return buf[:m].view(S, n, H, W), buf[m:2 * m].view(S, n, H, W)
+
+    def fill(self, il, ir) -> None:
+        for event in self.copied:
+            event.synchronize()
+        for dst, src in zip(self._pair(self.host, il.shape[1]), (il, ir)):
+            np.copyto(dst.numpy(), src, casting="no")
+
+    def upload(self, k: int, n: int) -> tuple:
+        m = 2 * n * math.prod(self.shape) // self.shape[1]
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(self.read[k])
+            self.dev[k][:m].copy_(self.host[:m], non_blocking=True)
+            self.copied[k].record(self.stream)
+        return self._pair(self.dev[k], n)
+
+    def ready(self, k: int) -> None:
+        torch.cuda.current_stream(self.device).wait_event(self.copied[k])
+
+    def done(self, k: int) -> None:
+        self.read[k].record(torch.cuda.current_stream(self.device))
+
+
+def staging(dev: torch.device, position: int, shape: tuple, dtype) -> Staging:
+    """Shard ``position``'s ``Staging`` on ``dev`` for chunks of ``shape``
+    (S per shard, chunk, H, W) of ``dtype`` (numpy's or torch's), made at
+    first use and kept until ``clear()``."""
+    if not isinstance(dtype, torch.dtype):
+        dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+    key = (dev, position, tuple(shape), dtype)
+    if key not in _staging:
+        _staging[key] = Staging(dev, shape, dtype)
+    return _staging[key]
 
 
 def rig_bytes(rig: StereoRig) -> tuple:
@@ -144,7 +221,13 @@ class BatchedStep:
         first replay)."""
         graph = self._graphs.get(batch)
         if graph is None:
-            graph = self._graphs[batch] = StepGraph(self, self.cfg, self.device, batch=batch)
+            # The graph runs the vmapped step itself (its images are on the
+            # device, its draws given), not this object: a graph holding its
+            # owner would sit in a reference cycle, freed by the collector at
+            # any time, even in the middle of another graph's capture, which
+            # that capture does not survive.
+            graph = self._graphs[batch] = StepGraph(self._vstep, self.cfg, self.device,
+                                                    batch=batch)
         return graph
 
 

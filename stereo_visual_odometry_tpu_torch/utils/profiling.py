@@ -24,7 +24,10 @@ opened with ``timed=True`` records a CUDA event pair on the current
 stream around its block, read into ``device_ms`` only at ``take()``.
 
 The spans the port records: ``evaluate.{pass,init,chunk,load_wait,draws,
-upload,replays,fetch,compose}`` (``parallel/evaluate.py``),
+upload,replays,prefetch,fetch,compose}`` (``parallel/evaluate.py``;
+``evaluate.upload`` a pass's first chunk, uploaded before its replays,
+``evaluate.prefetch`` each later chunk's, made while the replays before it
+run, timed on the copy stream),
 ``run_chunked.{chunk,upload,sync,replays,fetch,unpack}`` and
 ``system.{step,fetch}`` (``models/system.py``), ``online.queue``
 (``models/online.py``: from a pair's put to the worker's get, across

@@ -12,6 +12,11 @@ loading on the CPU and back.
 The ``seq`` mesh: two shards on one card, each capturing its own batched
 step graph, each bit for bit a single-device run at its batch size.
 
+The evaluator's uploads: chunks prefetched on the copy stream bit for bit
+one chunk's run, alone and over two shards; the staging buffers reused
+across passes and dropped by ``sequences.clear()``, which frees each
+batched step's graph at once.
+
 Marked ``cuda``; each skips without a GPU (decided inside the test). This
 file imports neither JAX nor the JAX package, so it runs on a machine with
 a card and no JAX:
@@ -1449,6 +1454,84 @@ def test_mesh_shard_equals_single_device_run(monkeypatch):
     assert min(got["accept_rate"]) >= 0.5
     sequences.clear()
 
+
+
+@pytest.mark.parametrize("two_shards", [False, True])
+def test_evaluate_prefetch_equals_one_chunk(two_shards):
+    """``evaluate_batch`` on the card with ``chunk = 2`` (the first chunk
+    staged, each later one uploaded on the copy stream while the replays
+    before it run, a short last chunk) against ``chunk = T - 1`` (one chunk,
+    nothing prefetched): trajectories and accept rates bit for bit, alone
+    and over two shards on cuda:0; the two shards against the unsplit run as
+    the CPU mesh test holds them (within 1e-5 m)."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.parallel import evaluate, sequences
+    from stereo_visual_odometry_tpu_torch.parallel.mesh import Mesh
+    il, ir, vo, rig = _mesh_inputs(n_frames=6)
+    lengths = np.array([6, 5, 6, 4])
+    mesh = Mesh((torch.device("cuda", 0),) * 2, "seq") if two_shards else None
+    sequences.clear()
+    whole = evaluate.evaluate_batch(il, ir, lengths, vo, rig, chunk=5, mesh=mesh, seed=3)
+    got = evaluate.evaluate_batch(il, ir, lengths, vo, rig, chunk=2, mesh=mesh, seed=3)
+    for s, (a, b) in enumerate(zip(got["trajectories"], whole["trajectories"], strict=True)):
+        assert a.shape == (lengths[s], 4, 4)
+        np.testing.assert_array_equal(a, b)
+    assert got["accept_rate"] == whole["accept_rate"]
+    assert min(got["accept_rate"]) >= 0.5
+    if two_shards:
+        unsplit = evaluate.evaluate_batch(il, ir, lengths, vo, rig, chunk=2, seed=3)
+        assert unsplit["accept_rate"] == got["accept_rate"]
+        for a, b in zip(got["trajectories"], unsplit["trajectories"], strict=True):
+            np.testing.assert_allclose(a[:, :3, 3], b[:, :3, 3], atol=1e-5, rtol=0)
+    sequences.clear()
+
+
+def test_evaluate_staging_is_reused_and_cleared():
+    """Two passes on the card stage through the same pinned and device
+    buffers (one ``Staging``: one pinned host buffer, two device slots, the
+    same ``data_ptr``s); ``sequences.clear()`` drops them."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.parallel import evaluate, sequences
+    il, ir, vo, rig = _mesh_inputs(n_frames=6, S=2)
+    sequences.clear()
+    ptrs = []
+    for seed in range(2):
+        out = evaluate.evaluate_batch(il, ir, np.full(2, 6), vo, rig, chunk=2, seed=seed)
+        assert min(out["accept_rate"]) >= 0.5
+        (st,) = sequences._staging.values()
+        assert st.shape == (2, 2, 192, 256) and st.host.is_pinned()
+        assert [b.device for b in st.dev] == [torch.device("cuda", 0)] * 2
+        ptrs.append([st.host.data_ptr()] + [b.data_ptr() for b in st.dev])
+    assert ptrs[0] == ptrs[1]
+    sequences.clear()
+    assert not sequences._staging
+
+
+
+def test_cleared_batched_step_frees_its_graph_at_once():
+    """Three evaluations in turn, each after ``sequences.clear()``, each
+    capturing its own graph; ``clear()`` frees each captured graph at once,
+    the collector off (a graph the collector frees while another captures
+    breaks that capture)."""
+    need_cuda()
+    import gc
+    import weakref
+    from stereo_visual_odometry_tpu_torch.parallel import evaluate, sequences
+    il, ir, vo, rig = _mesh_inputs(n_frames=6, S=2)
+    sequences.clear()
+    for seed in range(3):
+        out = evaluate.evaluate_batch(il, ir, np.full(2, 6), vo, rig, chunk=2, seed=seed)
+        assert min(out["accept_rate"]) >= 0.5
+        graph = sequences.batched_frontend(vo, rig, 2)[1].graph(2)
+        assert graph.per_replay
+        ref = weakref.ref(graph)
+        del graph
+        gc.disable()
+        try:
+            sequences.clear()
+            assert ref() is None
+        finally:
+            gc.enable()
 
 # ---- slice 5: the command line, the online feed, checkpoint/resume ------------ #
 

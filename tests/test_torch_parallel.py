@@ -15,7 +15,8 @@ is ``test_torch_batched_frontend.py``).
   ``evaluate_batch`` also against JAX's with JAX's draws injected: accept
   rates equal, each pose within 1e-3 m. Both run the XLA formulation of
   LK here (JAX's CPU default), the port's through K1.
-* ``utils/kitti.py`` against JAX's; the meshes; no JAX in the new modules.
+* ``utils/kitti.py`` against JAX's; the meshes; no JAX in the new modules;
+  a batched step's graph holding not its owner (no reference cycle).
 """
 import subprocess
 import sys
@@ -358,6 +359,36 @@ def test_batched_frontend_cache():
     assert sequences.batched_frontend(cfg, port_rig(rp), 2, device="cpu") is not first
     sequences.clear()
 
+
+
+def test_batched_step_graph_holds_not_its_owner(monkeypatch):
+    """A ``BatchedStep``'s graph runs the vmapped step, not the step object:
+    dropped (``sequences.clear()``), the step and its graph go at once, with
+    no reference cycle left for the collector to free later, perhaps while
+    another graph captures (a graph stands in here: a real one needs a card)."""
+    import gc
+    import weakref
+
+    made = []
+
+    class Graph:
+        def __init__(self, step_fn, cfg, device, batch=None):
+            self.step_fn = step_fn
+            made.append(self)
+
+    monkeypatch.setattr(sequences, "StepGraph", Graph)
+    sequences.clear()
+    cfg, rp = tfront.VOConfig(**SMALL), dict(cx=W / 2, cy=H / 2, baseline=0.5)
+    step = sequences.batched_frontend(cfg, port_rig(rp), 2, device="cpu")[1]
+    assert step.graph(2) is step.graph(2) is made[0] and made[0].step_fn is not step
+    refs = [weakref.ref(step), weakref.ref(made.pop())]
+    del step
+    gc.disable()
+    try:
+        sequences.clear()
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()
 
 def test_evaluate_defaults_to_cuda():
     il = np.zeros((1, 2, H, W), np.float32)

@@ -7,7 +7,9 @@ at a tiny size (96x160, S = 2, 5 frames, chunk 2).
   no profiler range.
 * On: each entry point's span tree (names, parents, request ids, every
   child inside its parent; each ``online.queue`` before its
-  ``system.step``).
+  ``system.step``); the evaluator's one serial ``evaluate.upload`` and a
+  ``evaluate.prefetch`` between each earlier chunk's replays and fetch,
+  over ragged lengths, its results bit for bit one chunk's.
 * Under ``profiling.trace(None)``: each span of the main thread is a range
   among ``prof.events()`` that encloses the aten ops issued inside it.
 * The recorder itself: its cap, ``measure``, many threads at once, a span
@@ -38,8 +40,8 @@ H, W, FX, FRAMES, CHUNK = 96, 160, 150.0, 5, 2
 VO = VOConfig(height=H, width=W, max_features=128, num_hypotheses=64, min_features_track=8,
               min_inlier_rate=0.3)
 EVALUATE = {"evaluate.pass", "evaluate.init", "evaluate.chunk", "evaluate.load_wait",
-            "evaluate.draws", "evaluate.upload", "evaluate.replays", "evaluate.fetch",
-            "evaluate.compose"}
+            "evaluate.draws", "evaluate.upload", "evaluate.replays", "evaluate.prefetch",
+            "evaluate.fetch", "evaluate.compose"}
 CHUNKED = {"run_chunked.chunk", "run_chunked.upload", "run_chunked.sync",
            "run_chunked.replays", "run_chunked.fetch", "run_chunked.unpack"}
 
@@ -63,12 +65,12 @@ def no_recorder_left():
         profiling._recorder.take()
 
 
-def run_evaluate(scene):
+def run_evaluate(scene, lengths=(FRAMES, FRAMES), chunk=CHUNK):
     seqs, cam = scene
     il = np.stack([s["images_l"] for s in seqs])
     ir = np.stack([s["images_r"] for s in seqs])
-    return evaluate.evaluate_batch(il, ir, np.full(2, FRAMES), VO,
-                                   rig_from_config(cam, device="cpu"), chunk=CHUNK,
+    return evaluate.evaluate_batch(il, ir, np.array(lengths), VO,
+                                   rig_from_config(cam, device="cpu"), chunk=chunk,
                                    device="cpu")
 
 
@@ -160,8 +162,10 @@ def test_evaluate_span_tree(scene):
     names = Counter(s["name"] for s in spans)
     chunks = -(-(FRAMES - 1) // CHUNK)
     assert set(names) == EVALUATE
-    assert names["evaluate.pass"] == names["evaluate.init"] == 1
-    assert all(names[n] == chunks for n in EVALUATE - {"evaluate.pass", "evaluate.init"})
+    assert names["evaluate.pass"] == names["evaluate.init"] == names["evaluate.upload"] == 1
+    assert names["evaluate.prefetch"] == chunks - 1
+    assert all(names[n] == chunks for n in EVALUATE - {"evaluate.pass", "evaluate.init",
+                                                       "evaluate.upload", "evaluate.prefetch"})
     assert_nested(spans)
     root = next(s for s in spans if s["name"] == "evaluate.pass")
     assert root["parent"] is None and {s["request"] for s in spans} == {root["id"]}
@@ -169,14 +173,53 @@ def test_evaluate_span_tree(scene):
     for s in spans:
         if s["name"] in ("evaluate.init", "evaluate.chunk"):
             assert s["parent"] == root["id"]
+        elif s["name"] == "evaluate.load_wait":  # a chunk's load, waited for by its upload
+            assert ids[s["parent"]]["name"] in ("evaluate.upload", "evaluate.prefetch")
         elif s is not root:
             assert ids[s["parent"]]["name"] == "evaluate.chunk"
-    # the chunk's stages in the loop's order
-    first = min((s for s in spans if s["name"] == "evaluate.chunk"), key=lambda s: s["start_ns"])
-    kids = sorted((s for s in spans if s["parent"] == first["id"]), key=lambda s: s["start_ns"])
-    assert [s["name"] for s in kids] == ["evaluate.load_wait", "evaluate.draws",
-                                         "evaluate.upload", "evaluate.replays",
-                                         "evaluate.fetch", "evaluate.compose"]
+    # the chunks' stages in the loop's order: the first uploads its own frames,
+    # every chunk but the last the next one's, between its replays and fetch
+    order = sorted((s for s in spans if s["name"] == "evaluate.chunk"), key=lambda s: s["start_ns"])
+    kids = [[s["name"] for s in sorted((s for s in spans if s["parent"] == c["id"]),
+                                       key=lambda s: s["start_ns"])] for c in order]
+    assert kids[0] == ["evaluate.upload", "evaluate.draws", "evaluate.replays",
+                       "evaluate.prefetch", "evaluate.fetch", "evaluate.compose"]
+    assert kids[-1] == ["evaluate.draws", "evaluate.replays", "evaluate.fetch",
+                        "evaluate.compose"]
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_evaluate_prefetch_order_and_results(scene, chunk):
+    """Ragged lengths over several chunks (a short last one with ``chunk``
+    3): each of two passes uploads its first chunk alone and every later
+    one between the previous chunk's replays and fetch, and the results
+    are bit for bit those of one chunk (``chunk = T - 1``: nothing
+    prefetched)."""
+    lengths = (FRAMES, FRAMES - 1)
+    rec = profiling.record()
+    whole = run_evaluate(scene, lengths, chunk=FRAMES - 1)
+    assert Counter(s["name"] for s in rec.take())["evaluate.prefetch"] == 0
+    n_chunks = -(-(FRAMES - 1) // chunk)
+    rec = profiling.record()
+    got = [run_evaluate(scene, lengths, chunk=chunk) for _ in range(2)]
+    spans = rec.take()
+    ids = by_id(spans)
+    for root in (s for s in spans if s["name"] == "evaluate.pass"):
+        mine = [s for s in spans if s["request"] == root["id"]]
+        names = Counter(s["name"] for s in mine)
+        assert names["evaluate.upload"] == 1 and names["evaluate.prefetch"] == n_chunks - 1
+        assert names["evaluate.chunk"] == names["evaluate.replays"] == n_chunks
+        for pre in (s for s in mine if s["name"] == "evaluate.prefetch"):
+            sib = {s["name"]: s for s in mine if s["parent"] == pre["parent"]}
+            assert ids[pre["parent"]]["name"] == "evaluate.chunk"
+            assert sib["evaluate.replays"]["end_ns"] <= pre["start_ns"]
+            assert pre["end_ns"] <= sib["evaluate.fetch"]["start_ns"]
+    assert sum(s["name"] == "evaluate.pass" for s in spans) == 2
+    for out in got:
+        for a, b, n in zip(out["trajectories"], whole["trajectories"], lengths, strict=True):
+            assert a.shape == (n, 4, 4)
+            np.testing.assert_array_equal(a, b)
+        assert out["accept_rate"] == whole["accept_rate"]
 
 
 def test_run_chunked_span_tree(scene):
