@@ -198,11 +198,12 @@ def _apply(poses, points, dx_pose, dx_point):
 
 def _lm_loop(cam, poses, points, obs_kf, obs_lm, obs_uv, obs_w, n_iters, n_fixed,
              huber_px, init_damping, robust="huber", obs_right=None, T_rl=None,
-             reduce_tree=None, prior=None, schur_reduce=False):
+             reduce_tree=None, prior=None, schur_reduce=False, tally=None):
     """One LM phase of ``n_iters`` damped Schur steps, each accepted on the
     device iff the cost is finite and lower. ``prior``: a marginalization
     prior (``models/marg.py``) or None. Returns (poses, points, damping,
-    cost, cost0).
+    cost, cost0). ``tally``: a list that gains each step's accept flag (a
+    device bool, no extra op).
 
     ``reduce_tree`` (JAX ``models/ba.py:240-310``) sums trees of tensors
     across observation shards: None on one device, an all-reduce in the
@@ -261,25 +262,27 @@ def _lm_loop(cam, poses, points, obs_kf, obs_lm, obs_uv, obs_w, n_iters, n_fixed
         p = torch.where(ok, p_new, p)
         x = torch.where(ok, x_new, x)
         cost = torch.where(ok, new_cost, cost)
+        if tally is not None:
+            tally.append(ok)
     return p, x, lam, cost, cost0
 
 
 def _solve_phases(cam, poses, points, obs_kf, obs_lm, obs_uv, obs_w, n_iters, n_fixed,
                   huber_px, init_damping, gm_polish, prune_px, obs_right=None, T_rl=None,
-                  reduce_tree=None, prior=None, schur_reduce=False):
+                  reduce_tree=None, prior=None, schur_reduce=False, tally=None):
     """The whole solve schedule (JAX ``ba.py:333``): graduated
     non-convexity (Geman-McClure at 16, 4 and 1 times ``huber_px``) or one
     Huber phase, then optionally prune-and-repolish (a decision per
-    observation, local to a shard). ``reduce_tree`` and ``schur_reduce``
-    as in ``_lm_loop``. Returns (poses, points, damping, cost_final,
-    cost_initial, obs_w)."""
+    observation, local to a shard). ``reduce_tree``, ``schur_reduce`` and
+    ``tally`` as in ``_lm_loop``. Returns (poses, points, damping,
+    cost_final, cost_initial, obs_w)."""
     if gm_polish:
         schedule = [("gm", 16.0, n_iters), ("gm", 4.0, max(n_iters // 2, 2)),
                     ("gm", 1.0, max(n_iters // 2, 2))]
     else:
         schedule = [("huber", 1.0, n_iters)]
     kw = dict(obs_right=obs_right, T_rl=T_rl, prior=prior, reduce_tree=reduce_tree,
-              schur_reduce=schur_reduce)
+              schur_reduce=schur_reduce, tally=tally)
     poses_f, points_f, cost0 = poses, points, None
     for robust, mult, iters in schedule:
         poses_f, points_f, lam_f, cost_f, c0 = _lm_loop(
@@ -314,9 +317,14 @@ def bundle_adjust(cam: Pinhole, poses: torch.Tensor, points: torch.Tensor,
     after the main solve, observations with a residual above it are
     zero-weighted and a short re-polish runs; ``prior``: a marginalization
     prior (``models/marg.py``). Returns dict(poses, points, cost_initial,
-    cost_final, damping, obs_w), all tensors."""
+    cost_final, damping, obs_w, lm_accepted: the LM steps accepted), all
+    tensors (the count int32, summed on the device), and lm_iters: the LM
+    steps run, an int."""
+    tally = []
     poses_f, points_f, lam_f, cost_f, cost0, obs_w = _solve_phases(
         cam, poses, points, obs_kf, obs_lm, obs_uv, obs_w, n_iters, n_fixed, huber_px,
-        init_damping, gm_polish, prune_px, obs_right, T_rl, prior=prior)
+        init_damping, gm_polish, prune_px, obs_right, T_rl, prior=prior, tally=tally)
     return {"poses": poses_f, "points": points_f, "cost_initial": cost0,
-            "cost_final": cost_f, "damping": lam_f, "obs_w": obs_w}
+            "cost_final": cost_f, "damping": lam_f, "obs_w": obs_w,
+            "lm_iters": len(tally), "lm_accepted": (torch.stack(tally).sum(dtype=torch.int32) if tally else
+                            torch.zeros((), dtype=torch.int32, device=poses.device))}

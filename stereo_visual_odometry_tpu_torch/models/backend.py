@@ -13,6 +13,23 @@ frames, or when the tracks thin out, a keyframe is made; landmarks start
 from a keyframe's stereo triangulation (world frame); the local BA refines
 the window's poses and landmarks with the oldest pose fixed; the latest
 keyframe's correction goes back to the live pose (``System``).
+
+Spans (``utils/profiling.span``, recorded while a recorder is on):
+``backend.keyframe`` (``add_keyframe``), ``backend.marginalize`` (a slide's
+``_marginalize_oldest`` with its prior build, inside ``backend.keyframe``)
+and ``backend.solve`` (``optimize``; a CUDA event pair on the card) with its
+stages ``backend.problem``, ``backend.lm`` and ``backend.fetch``.
+
+A caller that checks the backend's work sets ``SlidingWindowBA.log`` to a
+list (or anything with ``append``): each slide that marginalizes appends
+``("slide", inputs, prior)`` and each solve ``("solve", problem, solved)``,
+by reference (no copy, no wait). ``inputs`` are ``marg.build_prior``'s
+arguments before the carried prior (the pre-slide window's camera_from_world
+poses, the consumed landmarks and every observation of them, ``T_rl``,
+``huber_px``), ``prior`` the new prior as the backend keeps it (numpy, over
+the slid window); a slide that consumes no landmark keeps the prior as it
+was and appends ``("slide", None, None)``. ``problem`` is the keyword
+arguments of the solve, ``solved`` what it returned.
 """
 from __future__ import annotations
 
@@ -25,7 +42,12 @@ import torch
 from . import ba, marg
 from .frontend import resolve_device
 from ..ops.camera import Pinhole
+from ..utils import profiling
 from ..utils.hostcopy import device_get_tree
+
+
+# What a solve brings back to the host, in one copy.
+FETCHED = ("poses", "points", "cost_initial", "cost_final", "lm_accepted")
 
 
 @dataclasses.dataclass
@@ -57,7 +79,10 @@ class SlidingWindowBA:
     """Keyframe window + local bundle adjustment with stereo residuals (the
     right-camera observations pin the scale a monocular window leaves
     free). ``cam`` is the left camera, on ``device`` (the card unless the
-    caller asks for another); ``T_rl`` the rig's right_from_left."""
+    caller asks for another); ``T_rl`` the rig's right_from_left.
+    ``self.solve`` is the window solve, ``ba.bundle_adjust``: a caller may
+    put in its place a function of the same keyword arguments that returns
+    what it returns (a check's stand-in)."""
 
     def __init__(self, cam: Pinhole, cfg: BackendConfig = BackendConfig(),
                  T_rl: np.ndarray | None = None, device="cuda"):
@@ -76,6 +101,8 @@ class SlidingWindowBA:
         # The marginalization prior over the window's pose slots, as numpy
         # (``marg`` layout, capacity cfg.window); None until the first slide.
         self.prior: dict | None = None
+        self.solve = ba.bundle_adjust
+        self.log = None              # where slides and solves are logged (above)
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
@@ -93,47 +120,49 @@ class SlidingWindowBA:
                      track_valid, pts3d_cur, pts3d_valid, track_xy_r=None,
                      track_stereo_valid=None, n_tracked: int | None = None) -> None:
         """Record a keyframe from a frame's track arrays (copied)."""
-        self._last_kf_n_tracked = (int(np.sum(np.asarray(track_valid)))
-                                   if n_tracked is None else int(n_tracked))
-        track_id = np.array(track_id)
-        track_xy = np.array(track_xy)
-        track_valid = np.array(track_valid)
-        pts3d_cur = np.array(pts3d_cur)
-        pts3d_valid = np.array(pts3d_valid)
-        track_xy_r = None if track_xy_r is None else np.array(track_xy_r)
-        track_stereo_valid = (np.zeros(len(track_id), bool) if track_stereo_valid is None
-                              else np.array(track_stereo_valid))
-        T_wc = np.asarray(T_wc, np.float64)
+        with profiling.span("backend.keyframe"):
+            self._last_kf_n_tracked = (int(np.sum(np.asarray(track_valid)))
+                                       if n_tracked is None else int(n_tracked))
+            track_id = np.array(track_id)
+            track_xy = np.array(track_xy)
+            track_valid = np.array(track_valid)
+            pts3d_cur = np.array(pts3d_cur)
+            pts3d_valid = np.array(pts3d_valid)
+            track_xy_r = None if track_xy_r is None else np.array(track_xy_r)
+            track_stereo_valid = (np.zeros(len(track_id), bool) if track_stereo_valid is None
+                                  else np.array(track_stereo_valid))
+            T_wc = np.asarray(T_wc, np.float64)
 
-        obs = {}
-        for i, t in enumerate(track_id):
-            if track_valid[i] and t >= 0:
-                uv_r = (track_xy_r[i] if track_xy_r is not None and track_stereo_valid[i]
-                        else None)
-                obs[int(t)] = (track_xy[i], uv_r)
-        self.kf_poses.append(T_wc)
-        self.kf_obs.append(obs)
-        self.frame_of_kf.append(frame_idx)
-        # Landmark init: the first stereo depth wins (a stable anchor).
-        R, t = T_wc[:3, :3], T_wc[:3, 3]
-        for i, tid in enumerate(track_id):
-            tid = int(tid)
-            if tid >= 0 and track_valid[i] and pts3d_valid[i] and tid not in self.landmarks:
-                self.landmarks[tid] = R @ pts3d_cur[i] + t
-        # Slide the window: marginalize, or drop the oldest.
-        if len(self.kf_poses) > self.cfg.window:
-            if self.cfg.marginalize:
-                self._marginalize_oldest()
-            self.kf_obs.pop(0)
-            self.kf_poses.pop(0)
-            self.frame_of_kf.pop(0)
-            live = set()
-            for o in self.kf_obs:
-                live.update(o.keys())
-            for tid in list(self.landmarks):
-                if tid not in live:
-                    del self.landmarks[tid]
-        self._frames_since_kf = 0
+            obs = {}
+            for i, t in enumerate(track_id):
+                if track_valid[i] and t >= 0:
+                    uv_r = (track_xy_r[i] if track_xy_r is not None and track_stereo_valid[i]
+                            else None)
+                    obs[int(t)] = (track_xy[i], uv_r)
+            self.kf_poses.append(T_wc)
+            self.kf_obs.append(obs)
+            self.frame_of_kf.append(frame_idx)
+            # Landmark init: the first stereo depth wins (a stable anchor).
+            R, t = T_wc[:3, :3], T_wc[:3, 3]
+            for i, tid in enumerate(track_id):
+                tid = int(tid)
+                if tid >= 0 and track_valid[i] and pts3d_valid[i] and tid not in self.landmarks:
+                    self.landmarks[tid] = R @ pts3d_cur[i] + t
+            # Slide the window: marginalize, or drop the oldest.
+            if len(self.kf_poses) > self.cfg.window:
+                if self.cfg.marginalize:
+                    with profiling.span("backend.marginalize"):
+                        self._marginalize_oldest()
+                self.kf_obs.pop(0)
+                self.kf_poses.pop(0)
+                self.frame_of_kf.pop(0)
+                live = set()
+                for o in self.kf_obs:
+                    live.update(o.keys())
+                for tid in list(self.landmarks):
+                    if tid not in live:
+                        del self.landmarks[tid]
+            self._frames_since_kf = 0
 
     def _obs_table(self, tid_to_idx: dict, consume: bool = False):
         """The fixed-capacity observation table (numpy) of the landmarks in
@@ -208,26 +237,31 @@ class SlidingWindowBA:
             m_tids = [t for t in self.kf_obs[0]
                       if t in self.landmarks and t not in live_now and n_other[t] <= 1]
         if not m_tids:
+            if self.log is not None:
+                self.log.append(("slide", None, None))
             return
         m_tids = m_tids[: self.cfg.max_landmarks]
         kw, _ = self._table_on_device({t: i for i, t in enumerate(m_tids)}, consume=True)
 
-        poses_cw = self._poses_cw()                        # (W+1, 4, 4)
+        poses_cw = self._dev(self._poses_cw())            # (W+1, 4, 4)
         carry_H = carry_b = None
         if self.prior is not None:
             # The prior over slots 0..W-1 of the pre-slide window, at the
             # current poses, embedded into W+1 slots.
-            H_s, b_s = marg.shift_prior(self._prior_on_device(), self._dev(poses_cw[:W]))
+            H_s, b_s = marg.shift_prior(self._prior_on_device(), poses_cw[:W])
             g = self.cfg.prior_decay
             carry_H = H_s.new_zeros((Kp1, Kp1, 6, 6))
             carry_H[:W, :W] = g * H_s
             carry_b = b_s.new_zeros((Kp1, 6))
             carry_b[:W] = g * b_s
-        prior = marg.build_prior(self.cam, self._dev(poses_cw), huber_px=self.cfg.huber_px,
+        prior = marg.build_prior(self.cam, poses_cw, huber_px=self.cfg.huber_px,
                                  carry_H=carry_H, carry_b=carry_b, **kw)
         # Truncate the (W+1)-slot output to the W-slot slid window.
         self.prior = {k: v[:W, :W] if k == "H" else v[:W]
                       for k, v in device_get_tree(prior).items()}
+        if self.log is not None:
+            self.log.append(("slide", dict(kw, cam=self.cam, poses=poses_cw,
+                                           huber_px=self.cfg.huber_px), self.prior))
         for t in m_tids:
             del self.landmarks[t]
 
@@ -269,16 +303,25 @@ class SlidingWindowBA:
         """Local BA over the current window; updates the keyframe poses and
         landmarks. Returns dict(correction (4, 4): the left-multiplied fix
         of the latest keyframe's pose, cost_initial, cost_final,
-        n_landmarks, n_obs, n_kf, wall_s) or None if the window is too
-        small. ``wall_s`` spans assembly, the device solve and the copy
-        back."""
+        n_landmarks, n_obs, n_kf, lm_iters, lm_accepted: the LM steps run and
+        accepted, wall_s) or None if the window is too small. ``wall_s``
+        spans assembly, the device solve and the copy back."""
+        with profiling.span("backend.solve", timed=self.device.type == "cuda"):
+            return self._optimize()
+
+    def _optimize(self) -> dict | None:
         t_start = time.perf_counter()
-        problem = self.window_problem()
+        with profiling.span("backend.problem"):
+            problem = self.window_problem()
         if problem is None:
             return None
         K = problem["n_kf"]
-        out = device_get_tree({k: v for k, v in ba.bundle_adjust(**problem["solve"]).items()
-                               if k in ("poses", "points", "cost_initial", "cost_final")})
+        with profiling.span("backend.lm"):
+            solved = self.solve(**problem["solve"])
+        if self.log is not None:
+            self.log.append(("solve", problem["solve"], solved))
+        with profiling.span("backend.fetch"):
+            out = device_get_tree({k: solved[k] for k in FETCHED})
         new_cw = out["poses"].astype(np.float64)[:K]
         old_last_wc = self.kf_poses[-1].copy()
         for k in range(K):
@@ -290,4 +333,5 @@ class SlidingWindowBA:
         return {"correction": correction, "cost_initial": float(out["cost_initial"]),
                 "cost_final": float(out["cost_final"]),
                 "n_landmarks": len(problem["tid_to_idx"]), "n_obs": problem["n_obs"],
-                "n_kf": K, "wall_s": time.perf_counter() - t_start}
+                "n_kf": K, "lm_iters": int(solved["lm_iters"]),
+                "lm_accepted": int(out["lm_accepted"]), "wall_s": time.perf_counter() - t_start}

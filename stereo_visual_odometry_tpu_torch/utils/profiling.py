@@ -31,8 +31,16 @@ run, timed on the copy stream),
 ``run_chunked.{chunk,upload,sync,replays,fetch,unpack}`` and
 ``system.{step,fetch}`` (``models/system.py``), ``online.queue``
 (``models/online.py``: from a pair's put to the worker's get, across
-threads, ``begin``/``end``) and ``graph.{replay,launch,capture}``
-(``models/step_graph.py``; ``graph.launch`` timed).
+threads, ``begin``/``end``), ``graph.{replay,launch,capture}``
+(``models/step_graph.py``; ``graph.launch`` timed) and the BA backend's
+(``models/backend.py``): ``backend.keyframe`` (``add_keyframe``'s
+bookkeeping) with ``backend.marginalize`` inside it where a slide
+marginalizes (the prior build), and ``backend.solve`` (all of
+``optimize``; timed on the card) with ``backend.{problem,lm,fetch}``
+(the window's table put on the device, the ``bundle_adjust`` call, the
+copy back). A solve's LM steps run and accepted are counters in its
+result (``lm_iters``, known on the host, and ``lm_accepted``, fetched with
+the rest).
 """
 from __future__ import annotations
 

@@ -1324,6 +1324,45 @@ def test_batched_graph_launches_per_replay_as_unbatched():
     assert counts[1] == counts[4] == {"extract_windows_int": 27}, counts
 
 
+def test_prior_solve_with_spans_matches_the_plain_reference():
+    """A window solve carrying a marginalization prior, on the card inside
+    the backend's spans (``backend.solve`` timed, ``backend.lm``) and under
+    ``set_sync_debug_mode("error")`` (no host sync inside the solve), against
+    the plain float64 reference (``vobench/reference_ba.py``) on the card, within
+    ``tests/test_torch_plain_ba.py``'s tolerances; its accepted steps come
+    back as a device tensor and the timed span reads a device time."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.models import ba
+    from vobench import reference_ba as plain
+    from torch_ba_windows import on, window
+    kw = dict(on(window(7, outliers=10, prior=True)["kw"], device="cuda"), n_iters=8,
+              n_fixed=1, huber_px=2.0, prune_px=8.0)
+    ba.bundle_adjust(**kw)               # the first call loads the solver libraries
+    torch.cuda.synchronize()
+    rec = profiling.record()
+    try:
+        with profiling.span("backend.solve", timed=True), profiling.span("backend.lm"):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = ba.bundle_adjust(**kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        spans = rec.take()
+    want = plain.bundle_adjust(**kw)
+    assert want["poses"].is_cuda and want["poses"].dtype == torch.float64
+    assert float((got["poses"].double() - want["poses"]).abs().max()) <= 5e-3
+    gap = (got["points"].double() - want["points"]).abs()
+    assert bool((gap <= 3e-3 * (1.0 + want["points"].abs())).all())
+    for k in ("cost_initial", "cost_final"):
+        assert abs(float(got[k]) - float(want[k])) <= 1e-4 * abs(float(want[k])), k
+    assert torch.equal(got["obs_w"] > 0, want["obs_w"] > 0)
+    assert got["lm_accepted"].is_cuda and int(got["lm_iters"]) == want["lm_iters"] == 20
+    assert 0 < int(got["lm_accepted"]) <= 20
+    assert [s["name"] for s in spans] == ["backend.lm", "backend.solve"]
+    assert spans[1]["device_ms"] > 0
+
+
 def test_distributed_solve_on_nccl_world_size_one():
     """``dist_ba`` on NCCL at world size 1 (a HashStore) against
     ``bundle_adjust`` on the card, with
