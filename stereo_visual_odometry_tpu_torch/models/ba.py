@@ -17,8 +17,9 @@ JAX module is dense XLA, no Pallas kernel):
 
 No call here waits for the device: the inverses and solves are the ``_ex``
 forms (no ``info`` check on the host), no value is read back and no branch
-depends on a tensor, so a solve needs no host sync and could be captured
-in a CUDA graph. On CUDA ``index_add_`` sums with atomics, in an order that
+depends on a tensor, so a solve needs no host sync and is captured in a
+CUDA graph: on the card the backend replays ``bundle_adjust`` from one
+(``models/ba_graph.py``). On CUDA ``index_add_`` sums with atomics, in an order that
 changes from run to run, so two solves agree to float32 rounding, not bit
 for bit. Float32 throughout, TF32 off (the package's numerics policy), the
 counterpart of JAX's ``Precision.HIGHEST``.

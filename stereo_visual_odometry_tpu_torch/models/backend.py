@@ -14,11 +14,18 @@ from a keyframe's stereo triangulation (world frame); the local BA refines
 the window's poses and landmarks with the oldest pose fixed; the latest
 keyframe's correction goes back to the live pose (``System``).
 
+On the card the window solve replays from a CUDA graph
+(``models/ba_graph.py``), one per problem key: the backend's tables have
+fixed capacities, so a backend captures two, before its first slide (no
+prior) and after it. Elsewhere it runs ``ba.bundle_adjust`` eagerly.
+
 Spans (``utils/profiling.span``, recorded while a recorder is on):
 ``backend.keyframe`` (``add_keyframe``), ``backend.marginalize`` (a slide's
 ``_marginalize_oldest`` with its prior build, inside ``backend.keyframe``)
 and ``backend.solve`` (``optimize``; a CUDA event pair on the card) with its
-stages ``backend.problem``, ``backend.lm`` and ``backend.fetch``.
+stages ``backend.problem``, ``backend.lm`` and ``backend.fetch``; on the
+card ``backend.lm`` holds the graphed solve's ``backend.capture`` (a key's
+first solve) and ``backend.replay`` (timed).
 
 A caller that checks the backend's work sets ``SlidingWindowBA.log`` to a
 list (or anything with ``append``): each slide that marginalizes appends
@@ -39,7 +46,7 @@ import time
 import numpy as np
 import torch
 
-from . import ba, marg
+from . import ba, ba_graph, marg
 from .frontend import resolve_device
 from ..ops.camera import Pinhole
 from ..utils import profiling
@@ -80,9 +87,11 @@ class SlidingWindowBA:
     right-camera observations pin the scale a monocular window leaves
     free). ``cam`` is the left camera, on ``device`` (the card unless the
     caller asks for another); ``T_rl`` the rig's right_from_left.
-    ``self.solve`` is the window solve, ``ba.bundle_adjust``: a caller may
-    put in its place a function of the same keyword arguments that returns
-    what it returns (a check's stand-in)."""
+    ``self.solve`` is the window solve: on the card ``self.solve_graph``,
+    a ``ba_graph.SolveGraph`` (``ba.bundle_adjust`` replayed from a CUDA
+    graph), elsewhere ``ba.bundle_adjust`` itself (``solve_graph`` None). A
+    caller may put in its place a function of the same keyword arguments
+    that returns what it returns (a check's stand-in)."""
 
     def __init__(self, cam: Pinhole, cfg: BackendConfig = BackendConfig(),
                  T_rl: np.ndarray | None = None, device="cuda"):
@@ -101,7 +110,8 @@ class SlidingWindowBA:
         # The marginalization prior over the window's pose slots, as numpy
         # (``marg`` layout, capacity cfg.window); None until the first slide.
         self.prior: dict | None = None
-        self.solve = ba.bundle_adjust
+        self.solve_graph = ba_graph.SolveGraph() if self.device.type == "cuda" else None
+        self.solve = ba.bundle_adjust if self.solve_graph is None else self.solve_graph
         self.log = None              # where slides and solves are logged (above)
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
@@ -304,8 +314,9 @@ class SlidingWindowBA:
         landmarks. Returns dict(correction (4, 4): the left-multiplied fix
         of the latest keyframe's pose, cost_initial, cost_final,
         n_landmarks, n_obs, n_kf, lm_iters, lm_accepted: the LM steps run and
-        accepted, wall_s) or None if the window is too small. ``wall_s``
-        spans assembly, the device solve and the copy back."""
+        accepted, graphed: whether the solve replayed from a CUDA graph,
+        wall_s) or None if the window is too small. ``wall_s`` spans
+        assembly, the device solve and the copy back."""
         with profiling.span("backend.solve", timed=self.device.type == "cuda"):
             return self._optimize()
 
@@ -316,8 +327,10 @@ class SlidingWindowBA:
         if problem is None:
             return None
         K = problem["n_kf"]
+        replays = 0 if self.solve_graph is None else self.solve_graph.replays
         with profiling.span("backend.lm"):
             solved = self.solve(**problem["solve"])
+        graphed = self.solve_graph is not None and self.solve_graph.replays > replays
         if self.log is not None:
             self.log.append(("solve", problem["solve"], solved))
         with profiling.span("backend.fetch"):
@@ -334,4 +347,5 @@ class SlidingWindowBA:
                 "cost_final": float(out["cost_final"]),
                 "n_landmarks": len(problem["tid_to_idx"]), "n_obs": problem["n_obs"],
                 "n_kf": K, "lm_iters": int(solved["lm_iters"]),
-                "lm_accepted": int(out["lm_accepted"]), "wall_s": time.perf_counter() - t_start}
+                "lm_accepted": int(out["lm_accepted"]), "graphed": graphed,
+                "wall_s": time.perf_counter() - t_start}

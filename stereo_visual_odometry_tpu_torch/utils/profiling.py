@@ -37,10 +37,14 @@ threads, ``begin``/``end``), ``graph.{replay,launch,capture}``
 bookkeeping) with ``backend.marginalize`` inside it where a slide
 marginalizes (the prior build), and ``backend.solve`` (all of
 ``optimize``; timed on the card) with ``backend.{problem,lm,fetch}``
-(the window's table put on the device, the ``bundle_adjust`` call, the
-copy back). A solve's LM steps run and accepted are counters in its
+(the window's table put on the device, the solve's call, the copy back);
+on the card ``backend.lm`` holds ``backend.capture`` (the graphed solve's
+warm-up and capture, a key's first solve; ``models/ba_graph.py``) and
+``backend.replay`` (timed: the copies in, the launch, the clones out). A
+solve's LM steps run and accepted are counters in its
 result (``lm_iters``, known on the host, and ``lm_accepted``, fetched with
-the rest).
+the rest), and whether it replayed from the graph (``graphed``); the
+graphed solve counts its ``captures`` and ``replays``.
 """
 from __future__ import annotations
 

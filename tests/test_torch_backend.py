@@ -351,3 +351,87 @@ def test_orb_system_with_backend():
     for r in runs:
         assert r["cost_final"] <= r["cost_initial"] * 1.001 and r["n_landmarks"] >= 8
     assert trajectory.ate_rmse(traj, seq["poses_gt"], align=False) < 1.0
+
+
+# ---------------------------------------------------------------------- #
+# The graphed window solve (``models/ba_graph.py``): its key off the card,
+# the backend's eager solve on the CPU, and the metric that reads its spans.
+
+def _key_problem(**change):
+    from torch_ba_windows import on, window
+    prior = change.pop("prior", False)
+    kw = on(window(3, prior=prior, **change.pop("window", {}))["kw"])
+    return dict(kw, **dict(dict(n_iters=8, n_fixed=1, huber_px=2.0, prune_px=8.0), **change))
+
+
+@pytest.mark.parametrize("other", [
+    dict(prior=True), dict(window={"L": 64}), dict(window={"pad_obs": 32}),
+    dict(n_iters=6), dict(huber_px=1.5), dict(prune_px=None), dict(gm_polish=False),
+    dict(n_fixed=2), dict(init_damping=1e-2)],
+    ids=["prior", "landmarks", "observations", "n_iters", "huber_px", "prune_px",
+         "gm_polish", "n_fixed", "init_damping"])
+def test_problem_key_separates_problems(other):
+    """Equal problems (built apart, other values, defaults given or not) key
+    alike; a prior, another table shape or another scalar keys apart. The
+    camera's values are inputs of the graph, not part of its key."""
+    from stereo_visual_odometry_tpu_torch.models import ba_graph
+    from stereo_visual_odometry_tpu_torch.ops.camera import Pinhole
+    base = _key_problem()
+    same = dict(_key_problem(), points=base["points"] + 1.0, gm_polish=True,
+                cam=Pinhole.create(600.0, 600.0, 300.0, 200.0))
+    assert ba_graph.problem_key(same) == ba_graph.problem_key(base)
+    assert ba_graph.problem_key(_key_problem(**other)) != ba_graph.problem_key(base)
+    with pytest.raises(TypeError):
+        ba_graph.problem_key(dict(base, n_iter=8))
+
+
+def test_backend_solves_eagerly_off_the_card(jax_run, seq):
+    """On the CPU the backend's solve is ``ba.bundle_adjust`` itself, with
+    no graph: each logged solve is what ``bundle_adjust`` gives on its
+    problem, bit for bit, and ``optimize`` reports every solve not graphed."""
+    from stereo_visual_odometry_tpu_torch.models import ba
+    j_sys, _, _ = jax_run
+    jrig, trig = _rigs(seq)
+    tb = tbackend.SlidingWindowBA(trig.left, tbackend.BackendConfig(**BCFG),
+                                  T_rl=np.asarray(jrig.T_rl), device="cpu")
+    assert tb.solve is ba.bundle_adjust and tb.solve_graph is None
+    tb.log, results = [], []
+    optimize = tb.optimize
+    tb.optimize = lambda: results.append(optimize()) or results[-1]
+    _feed(tb, _frames(j_sys))
+    solved = [r for r in results if r is not None]
+    assert len(solved) >= 5 and not any(r["graphed"] for r in solved)
+    logged = [e for e in tb.log if e[0] == "solve"]
+    assert len(logged) == len(solved)
+    for _, problem, got in logged:
+        want = ba.bundle_adjust(**problem)
+        for k in ("poses", "points", "cost_final", "obs_w", "lm_accepted"):
+            assert torch.equal(got[k], want[k]), k
+
+
+def _span(name, sid, parent):
+    return {"name": name, "id": sid, "parent": parent, "start_ns": 0, "end_ns": 1}
+
+
+@pytest.mark.parametrize("graphed, want", [((True, True), 100.0), ((True, False), 50.0),
+                                           ((False, False), None)],
+                         ids=["all", "half", "no_replay_span"])
+def test_graph_share_reader(graphed, want):
+    """``ba_graph_share.ba`` over hand-made spans: two solves that solved
+    (each ``backend.solve`` holding a ``backend.lm``) and one too small to
+    solve; a solve counts as graphed where its ``backend.lm`` holds a
+    ``backend.replay``. A program that records no ``backend.replay`` at all
+    reads None, and so does a run without spans."""
+    from vobench import run
+    read = run.reader("ba_graph_share.ba")
+    spans = [_span("backend.solve", 1, None), _span("backend.problem", 2, 1),
+             _span("backend.solve", 3, None), _span("backend.lm", 4, 3),
+             _span("backend.solve", 6, None), _span("backend.lm", 7, 6),
+             _span("backend.replay", 9, None)]   # a replay outside any solve
+    for i, (lm, on) in enumerate(zip((4, 7), graphed)):
+        if on:
+            spans += [_span("backend.capture", 20 + i, lm), _span("backend.replay", 10 + i, lm)]
+    if not any(graphed):
+        spans = spans[:-1]
+    assert read({"spans": spans}) == want
+    assert read({}) is None and read({"spans": []}) is None

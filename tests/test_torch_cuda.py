@@ -12,6 +12,11 @@ loading on the CPU and back.
 The ``seq`` mesh: two shards on one card, each capturing its own batched
 step graph, each bit for bit a single-device run at its batch size.
 
+The BA backend's window solve: eagerly against the CPU, without a host
+sync; replayed from its CUDA graph (``models/ba_graph.py``) against the
+eager solve, each call's outputs its own, a replay without a host sync,
+and a ``System`` capturing once per key.
+
 The evaluator's uploads: chunks prefetched on the copy stream bit for bit
 one chunk's run, alone and over two shards; the staging buffers reused
 across passes and dropped by ``sequences.clear()``, which frees each
@@ -1175,7 +1180,7 @@ def test_bundle_adjust_on_cuda_matches_cpu(prior):
     fn, kw = _ba_call("cpu", prior)
     want = fn(**kw)
     fn, kw = _ba_call("cuda", prior)
-    got = {k: v.cpu() for k, v in fn(**kw).items()}
+    got = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in fn(**kw).items()}
     np.testing.assert_allclose(got["poses"].numpy(), want["poses"].numpy(), atol=5e-3, rtol=0)
     np.testing.assert_allclose(got["points"].numpy(), want["points"].numpy(),
                                atol=3e-3, rtol=3e-3)
@@ -1199,6 +1204,110 @@ def test_bundle_adjust_needs_no_host_sync():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(out["poses"]).all())
+
+
+def _assert_solves_close(got, want):
+    """``test_bundle_adjust_on_cuda_matches_cpu``'s bounds."""
+    got = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in got.items()}
+    want = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in want.items()}
+    np.testing.assert_allclose(got["poses"].numpy(), want["poses"].numpy(), atol=5e-3, rtol=0)
+    np.testing.assert_allclose(got["points"].numpy(), want["points"].numpy(),
+                               atol=3e-3, rtol=3e-3)
+    for k in ("cost_initial", "cost_final"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4)
+    assert torch.equal(got["obs_w"] > 0, want["obs_w"] > 0)
+    assert got["lm_iters"] == want["lm_iters"] and isinstance(got["lm_iters"], int)
+
+
+@pytest.mark.parametrize("prior", [False, True], ids=["plain", "prior"])
+def test_solve_graph_matches_eager(prior):
+    """The graphed solve (``models/ba_graph.py``) against ``bundle_adjust``
+    eagerly on the card, within ``test_bundle_adjust_on_cuda_matches_cpu``'s
+    bounds (``index_add_``'s atomics sum in another order each run): at the
+    capturing call and at a replay, one capture, two replays."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.models import ba_graph
+    fn, kw = _ba_call("cuda", prior)
+    want = fn(**kw)
+    solve = ba_graph.SolveGraph()
+    for _ in range(2):
+        _assert_solves_close(solve(**kw), want)
+    assert (solve.captures, solve.replays) == (1, 2)
+
+
+def test_solve_graph_outputs_are_the_callers_own():
+    """Two calls with other inputs return other tensors, and the first
+    call's outputs stay as they were after the second (a log keeps solves
+    by reference); the caller's inputs are left alone."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.models import ba_graph
+    fn, kw = _ba_call("cuda", prior=True)
+    solve = ba_graph.SolveGraph()
+    first = solve(**kw)
+    kept = {k: v.clone() for k, v in first.items() if isinstance(v, torch.Tensor)}
+    moved = dict(kw, points=kw["points"] * 1.02, poses=kw["poses"].clone())
+    moved["poses"][1:, :3, 3] += 0.05
+    inputs = {k: v.clone() for k, v in moved.items() if isinstance(v, torch.Tensor)}
+    second = solve(**moved)
+    assert solve.captures == 1
+    for k, v in kept.items():
+        assert first[k].data_ptr() != second[k].data_ptr(), k
+        assert torch.equal(first[k], v), k
+    assert not torch.equal(first["points"], second["points"])
+    for k, v in inputs.items():
+        assert torch.equal(moved[k], v), k
+    _assert_solves_close(second, fn(**moved))
+
+
+def test_solve_graph_replay_needs_no_host_sync():
+    """A replay (the copies in, the launch, the clones out) under
+    ``set_sync_debug_mode('error')``: any synchronizing call would raise."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.models import ba_graph
+    _, kw = _ba_call("cuda", prior=True)
+    solve = ba_graph.SolveGraph()
+    solve(**kw)                          # the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = solve(**kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert solve.replays == 2 and bool(torch.isfinite(out["poses"]).all())
+
+
+def test_system_backend_captures_each_key_once():
+    """A ``System`` with a backend on the card (the setup of
+    ``test_system_backend_composes_onto_the_corrected_pose``): the backend's
+    solve is its ``SolveGraph``, which captures once per key (no prior,
+    then a prior), every solve replays and reports ``graphed``, and the
+    spans put each capture and replay inside a solve's ``backend.lm``, so
+    ``ba_graph_share.ba`` reads 100."""
+    need_cuda()
+    from stereo_visual_odometry_tpu_torch.models.backend import BackendConfig
+    from vobench import run
+    cfg, _, frames = _graph_sequence(dict(SMALL, persistent_tracks=True), n_frames=10)
+    sys_ = System(cfg, device="cuda",
+                  backend_cfg=BackendConfig(window=3, kf_every=1, max_landmarks=256,
+                                            max_obs=2048, ba_iters=6))
+    be = sys_.backend
+    assert be.solve is be.solve_graph
+    rec = profiling.record()
+    try:
+        sys_.run(frames)
+    finally:
+        spans = rec.take()
+    solves = [m["ba"] for m in sys_.metrics if "ba" in m]
+    assert len(solves) >= 5 and all(r["graphed"] for r in solves)
+    assert be.solve_graph.captures == 2 and be.solve_graph.replays == len(solves)
+    assert sorted(dict(k)["prior"] is None for k in be.solve_graph._graphs) == [False, True]
+    names = {s["id"]: s["name"] for s in spans}
+    for s in spans:
+        if s["name"] in ("backend.capture", "backend.replay"):
+            assert names[s["parent"]] == "backend.lm", s
+    assert sum(s["name"] == "backend.capture" for s in spans) == 2
+    assert all(s["device_ms"] > 0 for s in spans if s["name"] == "backend.replay")
+    assert run.reader("ba_graph_share.ba")({"spans": spans}) == 100.0
 
 
 @pytest.mark.parametrize("graph", [True, False], ids=["graph", "eager"])
