@@ -9,27 +9,28 @@ for any amount (negative, or beyond the axis length).
 CUDA kernel ``csrc/roll.cu`` (four elements per thread with 16-byte
 accesses where the width and alignment allow, else one; the amount read
 from the (1, 1) int32 tensor on the card, so the host never waits for it);
-plain version ``roll_reference``. A CUDA tensor goes through the binding
-``csrc/roll_binding.cpp`` (PyTorch's C++ API; built by ``native.extension``
-at the first CUDA call, never at import): one call checks the inputs,
-allocates the output, takes the current stream and launches the kernel, so
-it captures in a CUDA graph unchanged. A CPU tensor takes the plain version;
-any other device raises, and so does a binding that does not build: there
-is no fallback. Launches are counted in ``roll.launches``.
+plain version ``roll_reference``. The wrapper routes by device as
+``patch.py`` does: a CUDA tensor launches the C entry ``svo_roll`` through
+the lean path (``native.entry``, the raw current stream), so it captures in
+a CUDA graph unchanged; a CPU tensor takes the plain version; any other
+device raises. Bad inputs raise a ValueError before anything launches.
+Launches are counted in ``roll.launches``.
 """
 from __future__ import annotations
 
 import torch
 
-from . import native
+from . import cuda_stream, native
 
-_launch = None  # the binding's roll, once built and loaded
+_INT_MAX = 2 ** 31 - 1
 
 
 def _check(x: torch.Tensor, amt: torch.Tensor, axis: int) -> None:
     if x.dtype != torch.float32 or x.dim() != 2 or x.numel() == 0:
         raise ValueError(f"x must be a non-empty 2-D float32 array, got {x.dtype} "
                          f"{tuple(x.shape)}")
+    if max(x.shape) > _INT_MAX:  # the C entry takes int rows and cols
+        raise ValueError(f"x has more than {_INT_MAX} rows or columns: {tuple(x.shape)}")
     if amt.dtype != torch.int32 or amt.shape != (1, 1):
         raise ValueError(f"amt must be a (1, 1) int32 tensor, got {amt.dtype} "
                          f"{tuple(amt.shape)}")
@@ -45,26 +46,24 @@ def roll_reference(x: torch.Tensor, amt: torch.Tensor, axis: int) -> torch.Tenso
     return torch.roll(x, -int(amt.reshape(())), axis)
 
 
-def launcher():
-    """The binding's ``roll(x, amt, axis)`` (built and loaded on the first
-    call): checks as ``_check`` does, with ``x`` on the card."""
-    global _launch
-    if _launch is None:
-        _launch = native.extension("roll_binding", ("svo_roll",)).roll
-    return _launch
-
-
 def roll(x: torch.Tensor, amt: torch.Tensor, axis: int) -> torch.Tensor:
     """``np.roll(x, -amt, axis)`` for a (rows, cols) float32 ``x`` and a
     (1, 1) int32 ``amt`` on the same device."""
-    if x.is_cuda:
-        out = (_launch or launcher())(x, amt, axis)
-        roll.launches += 1
-        return out
     _check(x, amt, axis)
-    if x.device.type != "cpu":
+    if x.device.type == "cpu":
+        return roll_reference(x, amt, axis)
+    if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return roll_reference(x, amt, axis)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    rows, cols = x.shape
+    index = x.get_device()
+    err = native.entry("svo_roll")(x.data_ptr(), rows, cols, amt.data_ptr(), axis,
+                                   out.data_ptr(), index, cuda_stream.current_stream(index))
+    if err != 0:
+        raise RuntimeError(f"svo_roll launch failed: cudaError {err}")
+    roll.launches += 1
+    return out
 
 
 roll.launches = 0

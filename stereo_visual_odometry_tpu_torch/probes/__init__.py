@@ -11,5 +11,5 @@ on the card (``--device cpu`` runs the plain versions at a small size).
   roll          K7: the dynamic-roll envelope
   step_nodes    the aten ops of one frontend step by stage and function: where
                 the nodes of the step's CUDA graph come from
-  timing        CUDA-event and CUDA-graph timers shared with ``chip_smoke.py``
+  timing        CUDA-event and CUDA-graph timers shared by the timing probes
 """

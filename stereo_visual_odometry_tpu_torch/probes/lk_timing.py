@@ -3,9 +3,9 @@
 function, a warp per point) timed on the card, with their iteration
 statistics.
 
-At two operating points, ``smoke`` (``chip_smoke.py`` phase 14's: a smooth
-texture moved by (2.3, -1.4) px on LK level 0 padded to (408, 1408), 1024
-points, guesses within 1.5 px, a quarter of them inactive) and ``probe``
+At two operating points, ``smoke`` (a smooth texture moved by (2.3, -1.4)
+px on LK level 0 padded to (408, 1408), 1024 points, guesses within 1.5 px,
+a quarter of them inactive) and ``probe``
 (``probes.lk_block``'s: smoothed noise moved by (3, 2) px, zero guesses,
 every point tracked), both at win 21, 30 iterations, eps 0.01, radius 6,
 it times per kernel:
@@ -31,7 +31,7 @@ so that they count K4's work.
 
 A third point, ``bench``, is the slice itself: every level call that
 ``System.run_chunked`` makes with ``lk_kernel='cell'`` (``'v1'``) on the
-first 8 frames of ``chip_smoke.py``'s bench sequence, recorded as it runs
+first 8 frames of the bench sequence (``bench_sequence``), recorded as it runs
 (K5 and K6, on no ``System`` path, are timed on K3's and K4's calls, with
 their masks: the same functions); for each, the kernel alone in a CUDA
 graph (mean and largest over the calls),

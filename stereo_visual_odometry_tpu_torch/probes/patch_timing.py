@@ -21,9 +21,8 @@ an A/B on one machine in one run) through the calls that K1's, K2's and
 K7's wrappers and ``probes/timing.py`` have had since they were written:
 ``extract_windows_int(img, corners, S)``, ``extract_patches(img, xy, P)``,
 ``roll(x, amt, axis)``, ``events_ms`` and ``graph_ms``. Prints one JSON
-object; on a tree whose K7 launches through its binding
-(``roll.launcher``) also K7's host split (``k7_host_split``). ``chip_smoke.py``
-calls ``measure``, ``host_split`` and ``k7_host_split`` itself.
+object; on a tree with the lean launch path (``native.entry``) also K1's
+and K7's host split (``host_split``, ``k7_host_split``).
 """
 from __future__ import annotations
 
@@ -207,20 +206,20 @@ def host_split(patch, native, current_stream) -> dict:
     return {k: host_us(f) for k, f in pieces.items()}
 
 
-def k7_host_split(roll) -> dict:
+def k7_host_split(roll, native, current_stream) -> dict:
     """K7's call on the host, piece by piece (us per call, each through one
-    Python call, no sync): the wrapper, the binding's ``roll`` alone (checks,
-    ``at::empty_like``, the stream, the launch), ``torch.empty_like`` and
-    ``torch.roll`` from Python, and the wrapper's device test
-    (``x.is_cuda``), at the timed shape."""
+    Python call, no sync): the wrapper, its C entry through ctypes (the
+    launch), ``torch.empty_like`` and ``torch.roll`` from Python, at the
+    timed shape."""
     x = torch.rand(K7_SHAPE, device="cuda")
     a = torch.tensor([[K7_AMOUNT]], dtype=torch.int32, device="cuda")
-    bound = roll.launcher()
+    out, index, fn = torch.empty_like(x), x.get_device(), native.entry("svo_roll")
+    stream = current_stream(index)
     pieces = {"wrapper": lambda: roll.roll(x, a, 0),
-              "binding": lambda: bound(x, a, 0),
+              "c_entry_launch": lambda: fn(x.data_ptr(), K7_SHAPE[0], K7_SHAPE[1], a.data_ptr(),
+                                           0, out.data_ptr(), index, stream),
               "torch_empty_like": lambda: torch.empty_like(x),
-              "torch_roll": lambda: torch.roll(x, -K7_AMOUNT, 0),
-              "is_cuda": lambda: x.is_cuda}
+              "torch_roll": lambda: torch.roll(x, -K7_AMOUNT, 0)}
     return {k: host_us(f) for k, f in pieces.items()}
 
 
@@ -245,8 +244,7 @@ def main(argv=None) -> int:
         except ImportError:  # a checkout from before the shared module
             current_stream = patch.current_stream
         res["k1_host_split_us"] = host_split(patch, native, current_stream)
-    if hasattr(roll, "launcher"):
-        res["k7_host_split_us"] = k7_host_split(roll)
+        res["k7_host_split_us"] = k7_host_split(roll, native, current_stream)
     print(json.dumps(res))
     return 0
 

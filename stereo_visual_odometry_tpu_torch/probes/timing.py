@@ -1,4 +1,4 @@
-"""Timers for the probes and ``chip_smoke.py``.
+"""Timers for the probes.
 
 ``events_ms`` times calls back to back with CUDA events: the larger of the
 host's time to issue a call and the device's time to run it. ``graph_ms``

@@ -1,9 +1,10 @@
 """Port parity: K7 (``roll.roll``), the roll by an amount held in device
 memory, against the JAX probe kernel ``probe_roll.make`` in Pallas
 interpret mode, and the route and probe of the port's roll module; and the
-build of K7's binding (``csrc/roll_binding.cpp``, ``native.extension``) as
-far as it goes without a card: its command, its key, no build at import or
-on the CPU route, a failed compile that raises.
+build of the kernel library (``native.build``: every ``csrc/*.cu`` with
+nvcc into one library) as far as it goes without a card: its key, its
+commands, a built library reused, a failed compile that raises and leaves
+nothing behind, no build at import or on the CPU route.
 
 ``scripts/probe_roll.py`` runs its envelope on the TPU at import, so the
 test executes only its ``make`` (``torch_jax_kernels.jax_roll``). The grid
@@ -13,7 +14,6 @@ length and the axis length + 5. Tolerance 0: a roll is a copy.
 """
 import subprocess
 import sys
-import sysconfig
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -51,10 +51,12 @@ def test_roll_routes_cpu_tensors_to_plain_version():
 
 
 @pytest.mark.parametrize("bad", ["meta_device", "mixed_devices", "amt_dtype", "amt_shape",
-                                 "x_dtype", "axis"])
+                                 "x_dtype", "x_rows", "axis"])
 def test_roll_checks_its_inputs(bad):
     x, amt, axis = torch.zeros(16, 256), torch.zeros((1, 1), dtype=torch.int32), 0
-    if bad == "meta_device":  # neither the CPU nor a card: no route
+    if bad == "x_rows":  # more rows than the C entry's int takes (a view: no memory)
+        x = torch.zeros(1, 1).expand(2 ** 31, 1)
+    elif bad == "meta_device":  # neither the CPU nor a card: no route
         x, amt = x.to("meta"), amt.to("meta")
     elif bad == "mixed_devices":
         amt = amt.to("meta")
@@ -94,7 +96,7 @@ def test_importing_roll_builds_nothing():
         "subprocess.Popen = subprocess.run = refuse\n"
         "import stereo_visual_odometry_tpu_torch\n"
         "from stereo_visual_odometry_tpu_torch.ops import native, roll\n"
-        "assert roll._launch is None and native._lib is None and not native._extensions\n")
+        "assert native._lib is None and not native._entries\n")
     root = Path(__file__).resolve().parents[1]
     done = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                           text=True, timeout=300)
@@ -105,7 +107,7 @@ def test_roll_on_the_cpu_builds_nothing(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("the CPU route started a build")
 
-    for name in ("build", "build_extension", "extension", "lib"):
+    for name in ("build", "lib", "entry"):
         monkeypatch.setattr(native, name, refuse)
     x = torch.rand(16, 256)
     got = troll.roll(x, torch.tensor([[3]], dtype=torch.int32), 0)
@@ -114,57 +116,85 @@ def test_roll_on_the_cpu_builds_nothing(monkeypatch):
 
 @pytest.fixture
 def fake_cuda(monkeypatch, tmp_path):
-    """A CUDA home for the command (none here) and an empty build dir."""
+    """A CUDA home for the commands (none here), an empty build dir and a
+    copy of the kernel sources that a test may edit."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in native.CSRC_DIR.iterdir():
+        (src / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(native, "_nvcc", lambda: "/toolkit/cuda/bin/nvcc")
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(native, "CSRC_DIR", src)
     return tmp_path / "_build"
 
 
-def test_binding_command_uses_the_host_compiler(fake_cuda, monkeypatch):
-    """The host compiler against PyTorch's, CUDA's and Python's headers,
-    linked against PyTorch's libraries: no nvcc, no ninja."""
-    from torch.utils import cpp_extension
-    monkeypatch.delenv("CXX", raising=False)
-    cmd = native.extension_command("roll_binding")
-    assert Path(cmd[0]).name in ("g++", "c++") and "nvcc" not in cmd[0]
-    assert not any("ninja" in part for part in cmd)
-    assert "-shared" in cmd and "-fPIC" in cmd
-    includes = {part[2:] for part in cmd if part.startswith("-I")}
-    assert set(cpp_extension.include_paths()) <= includes
-    assert {"/toolkit/cuda/include", sysconfig.get_paths()["include"]} <= includes
-    assert {f"-l{lib}" for lib in native.TORCH_LIBS} <= set(cmd)
-    src = native.CSRC_DIR / "roll_binding.cpp"
-    assert str(src) in cmd and src.exists()
-    monkeypatch.setenv("CXX", "clang++")
-    assert native.extension_command("roll_binding")[0] == "clang++"
+@pytest.mark.parametrize("changed", sorted(p.name for p in native.CSRC_DIR.glob("*.cu*"))
+                         + ["flags"])
+def test_library_path_is_keyed_by_every_source_header_and_flag(fake_cuda, monkeypatch,
+                                                                changed):
+    """The library's name changes with any ``.cu`` source, any ``.cuh``
+    header and the nvcc flags, and with nothing else."""
+    path = native.library_path()
+    assert path.parent == fake_cuda and path.name.startswith("libsvo_kernels_")
+    assert native.library_path() == path
+    (native.CSRC_DIR / "notes.txt").write_text("not a source")
+    assert native.library_path() == path
+    if changed == "flags":
+        monkeypatch.setattr(native, "NVCC_FLAGS", native.NVCC_FLAGS + ("-lineinfo",))
+    else:
+        src = native.CSRC_DIR / changed
+        src.write_bytes(src.read_bytes() + b"\n")
+    assert native.library_path() != path
 
 
-def test_binding_path_is_keyed_by_source_torch_and_python(fake_cuda, monkeypatch):
-    path = native.extension_path("roll_binding")
-    assert path.parent == fake_cuda
-    assert path.name.startswith("roll_binding_")
-    assert path.name.endswith(sysconfig.get_config_var("EXT_SUFFIX"))
-    assert native.extension_path("roll_binding") == path
-    monkeypatch.setattr(torch, "__version__", torch.__version__ + "+other")
-    assert native.extension_path("roll_binding") != path
-
-
-def test_build_extension_reuses_a_built_binding(fake_cuda, monkeypatch):
+def test_build_reuses_a_built_library(fake_cuda, monkeypatch):
     fake_cuda.mkdir()
-    path = native.extension_path("roll_binding")
+    path = native.library_path()
     path.write_bytes(b"")
 
     def refuse(*args, **kwargs):
-        raise AssertionError("rebuilt an existing binding")
+        raise AssertionError("rebuilt an existing library")
 
     monkeypatch.setattr(native, "_run_all", refuse)
-    assert native.build_extension("roll_binding") == path
+    assert native.build() == path
 
 
-def test_build_extension_raises_when_the_compiler_fails(fake_cuda, monkeypatch):
-    """A compile that fails raises and leaves nothing behind: no fallback."""
-    monkeypatch.setenv("CXX", "false")
+def test_build_raises_when_nvcc_fails_and_leaves_nothing(fake_cuda, monkeypatch):
+    """A compile that fails raises and leaves no library, object or
+    temporary file behind: no fallback."""
+    monkeypatch.setattr(native, "_nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="false failed"):
-        native.build_extension("roll_binding")
-    assert not native.extension_path("roll_binding").exists()
-    assert not list(fake_cuda.glob("*.tmp"))
+        native.build()
+    assert not native.library_path().exists()
+    assert list(fake_cuda.iterdir()) == []
+
+
+def test_build_compiles_every_cu_source_and_nothing_else(fake_cuda, monkeypatch):
+    """One nvcc per ``csrc/*.cu`` (with the flags, to an object of its
+    own), then one nvcc link of exactly those objects; no host compiler and
+    no other source. The library lands at ``library_path``, its log beside
+    it, and the objects are removed."""
+    (native.CSRC_DIR / "stray.cpp").write_text("int stray;")
+    ran = []
+
+    def fake_run_all(cmds):
+        for cmd in cmds:
+            ran.append(cmd)
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return [" ".join(c) for c in cmds]
+
+    monkeypatch.setattr(native, "_run_all", fake_run_all)
+    out = native.build()
+    sources = sorted(str(p) for p in native.CSRC_DIR.glob("*.cu"))
+    *compiles, link = ran
+    assert all(cmd[0] == "/toolkit/cuda/bin/nvcc" for cmd in ran)
+    assert sorted(cmd[-1] for cmd in compiles) == sources and len(sources) >= 5
+    objects = []
+    for cmd in compiles:
+        assert cmd[1:1 + len(native.NVCC_FLAGS)] == list(native.NVCC_FLAGS) and "-c" in cmd
+        objects.append(cmd[cmd.index("-o") + 1])
+    assert link[1] == "-shared" and link[4:] == objects
+    assert not any(part.endswith(".cpp") for cmd in ran for part in cmd)
+    assert out == native.library_path() and out.exists()
+    assert sorted(p.name for p in fake_cuda.iterdir()) == sorted(
+        [out.name, out.with_suffix(".log").name])

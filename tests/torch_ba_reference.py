@@ -12,21 +12,23 @@ cloud (40, 8, 180) m), LK at 256 features with persistent tracks,
 tracker there, the XLA formulation); ``port_xla`` the port with
 ``lk_backend='xla'``, the same tracker; ``port_dense`` the port's default.
 
-CASE ``orb_bench``: ORB with persistent tracks on the 49 bench frames of
-``chip_smoke.py`` phase 7 (376x1241 padded to 384x1280, 2048 features)
-with ``BackendConfig(window=6, kf_every=4)``, the path of phase 17 that
-the JAX bench never ran (``jax`` or ``port_dense``).
+CASE ``orb_bench``: ORB with persistent tracks on the 49 bench frames
+(``probes/lk_timing.bench_sequence``: 376x1241 padded to 384x1280, 2048
+features) with ``BackendConfig(window=6, kf_every=4)``, the path of
+``tests/test_torch_cuda.py::test_ba_leg_on_the_card[orb]`` that the JAX
+bench never ran (``jax`` or ``port_dense``).
 
-CASE ``cli_ba``: what ``chip_smoke.py`` phase 19 hands the command line
-with ``--ba --window 6 --kf-every 4``: the 49 bench frames as 8-bit PNGs
+CASE ``cli_ba``: what ``tests/test_torch_cuda.py::
+test_cli_at_kitti_shape_counts_k1[ba]`` hands the command line with ``--ba
+--window 6 --kf-every 4``: the 49 bench frames as 8-bit PNGs
 (376x1241, truncated to uint8) edge-padded to the CLI's 384x1248, LK at
 1024 features with persistent tracks (``--ba`` forces them),
 frontend-only and ``BackendConfig(window=6, kf_every=4)``; ``jax`` is the
 JAX CLI's path on the CPU (its default tracker there, the XLA
 formulation).
 
-CASE ``lk_bench``: LK on the bench scene of ``chip_smoke.py`` phases 6
-and 16 (seed 3, 9000 landmarks, 1.1 m/frame, 49 frames) at half resolution
+CASE ``lk_bench``: LK on the bench scene of ``test_path_on_the_bench_sequence``
+(seed 3, 9000 landmarks, 1.1 m/frame, 49 frames) at half resolution
 (188x620 padded to 192x640, fx 359.428, 512 features: a full-size run is a
 job for the card, not for a shared CPU), frontend-only, without and with
 persistent tracks: ``jax`` (its CPU default tracker, the XLA formulation),

@@ -1,6 +1,7 @@
-"""Reference numbers for the kernel-free LK branches of ``chip_smoke.py``
-(phase 9): the JAX package and the port on the CPU, at half the bench
-resolution.
+"""Reference numbers for the kernel-free LK branches on the bench sequence
+(``tests/test_torch_cuda.py::test_path_on_the_bench_sequence``, cases
+``xla``, ``no_sweep`` and ``not_predictive``): the JAX package and the port
+on the CPU, at half the bench resolution.
 
     JAX_PLATFORMS=cpu python tests/torch_lk_branch_reference.py
 
