@@ -53,10 +53,11 @@ from ..ops import lk_block, lk_cell, lk_v1, lk_v2, patch, pnp, roll
 from ..utils import profiling
 from ..utils.tree import tree_map
 
-# The wrappers of K1-K8, each counting its launches in ``.launches``.
+# The wrappers of K1-K8 and of RANSAC-PnP's kernels (three a call), each
+# counting its launches in ``.launches``.
 KERNELS = (patch.extract_windows_int, patch.extract_patches, lk_cell.level_track_cell,
            lk_v1.level_track_v1, lk_block.level_track_block, lk_v2.level_track_v2,
-           lk_block.level_track_block_split, roll.roll)
+           lk_block.level_track_block_split, roll.roll, pnp.ransac_pnp)
 
 
 def _counts() -> list[int]:

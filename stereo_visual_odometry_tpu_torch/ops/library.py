@@ -1,5 +1,5 @@
-"""K1-K4 as ``torch.library`` custom ops in the namespace ``svo``, with batch
-rules for ``torch.func.vmap``.
+"""K1-K4 and RANSAC-PnP as ``torch.library`` custom ops in the namespace
+``svo``, with batch rules for ``torch.func.vmap``.
 
 The port's counterpart of ``jax.custom_batching.custom_vmap`` on the JAX
 kernels (K1: ``stereo_visual_odometry_tpu/ops/patch_pallas.py:118-165``;
@@ -13,27 +13,31 @@ K3: ``ops/lk_pallas_cell.py:202-270``). Each op has
 * a vmap rule: it moves the sequence axis of every input to the front,
   broadcasts an input that vmap did not batch, and calls the batched entry
   (``patch.extract_windows_int_batched``, ``patch.extract_patches_batched``,
-  ``lk_cell.level_track_cell_batched``, ``lk_v1.level_track_v1_batched``)
-  once with B = S. On CUDA that is one launch of the kernel with a sequence
-  axis (the batched C entry of ``csrc/``), counted once: S sequences cost
-  one launch, never S. On the CPU the batched entry runs the plain version
-  once per sequence, on real tensors, so the plain versions' data-dependent
-  loops (K3's and K4's ``break`` when no point runs) need no batching.
+  ``lk_cell.level_track_cell_batched``, ``lk_v1.level_track_v1_batched``,
+  ``pnp.ransac_pnp_batched``) once with B = S. On CUDA that is one launch of
+  the kernel with a sequence axis (the batched C entry of ``csrc/``),
+  counted once (PnP: its three stages, counted three): S sequences cost
+  what one does, never S times it. On the CPU the batched entry runs the
+  plain version once per sequence, on real tensors, so the plain versions'
+  data-dependent loops (K3's and K4's ``break`` when no point runs) need no
+  batching.
 
 The rule makes its batched inputs contiguous (a copy only where vmap hands
 it a strided view; in a CUDA graph such a copy is one more node). One level
 of vmap is supported: the batched entries take plain tensors.
 
 The kernel wrappers (``patch.extract_windows_int``, ``patch.extract_patches``,
-``lk_cell.level_track_cell``, ``lk_v1.level_track_v1``) check their inputs
-and call these ops; they keep their signatures and their ``launches``.
+``lk_cell.level_track_cell``, ``lk_v1.level_track_v1``, ``pnp.ransac_pnp``)
+check their inputs and call these ops; they keep their signatures and their
+``launches``.
 Importing this module registers the ops (``ops/__init__.py`` does); nothing
 is built or launched at import.
 """
 import torch
 from torch.library import custom_op, register_vmap
 
-from . import lk_cell, lk_v1, patch
+from . import lk_cell, lk_v1, patch, pnp
+from .camera import Pinhole
 
 _CPU_CUDA = ("cpu", "cuda")
 
@@ -165,3 +169,47 @@ lk_level_cell = _lk_op("lk_level_cell", lk_cell.level_track_cell_reference,
                        lk_cell.level_track_cell_batched, lk_cell.level_track_cell)
 lk_level_v1 = _lk_op("lk_level_v1", lk_v1.level_track_v1_reference,
                      lk_v1.level_track_v1_batched, lk_v1.level_track_v1)
+
+
+# ---- RANSAC-PnP (csrc/pnp.cu) -------------------------------------------- #
+
+@custom_op("svo::ransac_pnp", mutates_args=(),
+           schema="(Tensor pts3d, Tensor px, Tensor valid, Tensor u, Tensor? T_init, "
+                  "Tensor? weights, Tensor fx, Tensor fy, Tensor cx, Tensor cy, "
+                  "float inlier_px, int refine_iters) "
+                  "-> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+def ransac_pnp(pts3d, px, valid, u, T_init, weights, fx, fy, cx, cy, inlier_px, refine_iters):
+    _unsupported(pts3d, px, valid, u)
+
+
+@ransac_pnp.register_kernel("cpu")
+def _(pts3d, px, valid, u, T_init, weights, fx, fy, cx, cy, inlier_px, refine_iters):
+    out = pnp.ransac_pnp_reference(Pinhole(fx, fy, cx, cy), pts3d, px, valid, u, inlier_px,
+                                   refine_iters, T_init, weights)
+    return tuple(out[k] for k in pnp.OUTPUTS)
+
+
+@ransac_pnp.register_kernel("cuda")
+def _(pts3d, px, valid, u, T_init, weights, fx, fy, cx, cy, inlier_px, refine_iters):
+    return pnp.launch(fx, fy, cx, cy, pts3d, px, valid, u, T_init, weights, inlier_px,
+                      refine_iters)
+
+
+@ransac_pnp.register_fake
+def _(pts3d, px, valid, u, T_init, weights, fx, fy, cx, cy, inlier_px, refine_iters):
+    n = pts3d.shape[0]
+    return (pts3d.new_empty((4, 4)), valid.new_empty((n,)),
+            pts3d.new_empty((), dtype=torch.int64), pts3d.new_empty(()),
+            valid.new_empty(()))
+
+
+@register_vmap("svo::ransac_pnp")
+def _(info, in_dims, pts3d, px, valid, u, T_init, weights, fx, fy, cx, cy, inlier_px,
+      refine_iters):
+    b = info.batch_size
+    if any(d is not None for d in in_dims[6:10]):
+        raise ValueError("svo::ransac_pnp takes one camera for all sequences: vmap over "
+                         "the points, not the intrinsics")
+    data = [None if t is None else _front(t, d, b).contiguous()
+            for t, d in zip((pts3d, px, valid, u, T_init, weights), in_dims[:6])]
+    return pnp.ransac_pnp_batched(fx, fy, cx, cy, *data, inlier_px, refine_iters), (0,) * 5

@@ -61,6 +61,11 @@ _SIGNATURES = {
                            _P, _I, _P],
     # x, rows, cols, amt, axis, out, device, stream
     "svo_roll": [_P, _I, _I, _P, _I, _P, _I, _P],
+    # pts, px, valid, weights (or null), T_init (or null), u, fx, fy, cx, cy,
+    # n, h, B, huber, thr^2, refine iters, samples, duplicate flags,
+    # hypotheses, scores, best, T, inliers, num_inliers, ratio, ok, device,
+    # stream
+    "svo_ransac_pnp_batched": [_P] * 10 + [_I] * 3 + [_F, _F, _I] + [_P] * 10 + [_I, _P],
 }
 
 _lock = threading.Lock()

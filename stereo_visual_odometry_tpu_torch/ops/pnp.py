@@ -5,12 +5,19 @@ hypotheses becomes a leading batch dimension. The hypothesis draws are
 ``u`` (H, 6) uniforms: a caller may inject them (tests hand both packages
 the same JAX-drawn ``u``; a CUDA graph of the step takes them as an input),
 otherwise ``draw_uniforms`` draws them from a ``torch.Generator``.
+
+Two routes of one contract: the plain version ``ransac_pnp_reference``
+(torch ops; the CPU's route, held to the JAX package) and, on CUDA, three
+hand-written kernels (``csrc/pnp.cu``: hypotheses, scores, polish; one
+launch each for every sequence), which take the ~7,060 launches of the
+plain version's unrolled solves to ``STAGES``. ``ransac_pnp`` routes by
+the tensors' device, as the patch kernels' wrappers do (``ops/patch.py``).
 """
 from __future__ import annotations
 
 import torch
 
-from . import se3
+from . import cuda_stream, native, patch, se3
 from .camera import Pinhole
 from .linalg_small import (cholesky_unrolled, cholesky_unrolled_flagged,
                            cho_solve_unrolled)
@@ -133,6 +140,13 @@ def draw_uniforms(num_hypotheses: int, generator: torch.Generator | None = None,
                       device=device)
 
 
+OUTPUTS = ("T", "inliers", "num_inliers", "inlier_ratio", "ok")
+STAGE_OUTPUTS = ("samp_idx", "samp_dup", "T_hyp", "msac", "best")
+# Kernels of one CUDA call (csrc/pnp.cu): hypotheses, scores, polish.
+STAGES = 3
+_F32 = torch.float32
+
+
 def ransac_pnp(cam: Pinhole, pts3d: torch.Tensor, px: torch.Tensor,
                valid: torch.Tensor, num_hypotheses: int = 512,
                inlier_px: float = 2.0, refine_iters: int = 10,
@@ -147,19 +161,55 @@ def ransac_pnp(cam: Pinhole, pts3d: torch.Tensor, px: torch.Tensor,
       valid: (N,) bool live correspondences.
       T_init: optional initial pose, scored as one extra hypothesis and used
         as the seed of the Gauss-Newton hypotheses.
+      weights: optional (N,) per-point weights of the scores and the polish.
       u: optional (num_hypotheses, 6) uniforms in [0, 1) for the samples;
         drawn from ``generator`` when None.
     Returns:
       dict(T (4, 4), inliers (N,) bool, num_inliers, inlier_ratio, ok).
+
+    Routes by the tensors' device: a CPU tensor runs the plain version
+    (``ransac_pnp_reference``); a CUDA tensor launches the three kernels of
+    ``csrc/pnp.cu`` (``launch``) and adds ``STAGES`` to
+    ``ransac_pnp.launches``; anything else raises. Under ``torch.func.vmap``
+    the call goes through the custom op ``svo::ransac_pnp``
+    (``ops/library.py``), whose batch rule takes S sequences in one call:
+    on CUDA the same three launches, on the CPU the plain version once per
+    sequence.
     """
+    if u is None:
+        u = draw_uniforms(num_hypotheses, generator, pts3d.dtype, pts3d.device)
+    elif u.shape != (num_hypotheses, MIN_SAMPLE):
+        raise ValueError(f"u must be {(num_hypotheses, MIN_SAMPLE)}, got {tuple(u.shape)}")
+    if patch.transformed():
+        return dict(zip(OUTPUTS, torch.ops.svo.ransac_pnp(
+            pts3d, px, valid, u, T_init, weights, cam.fx, cam.fy, cam.cx, cam.cy,
+            inlier_px, refine_iters)))
+    if pts3d.device.type == "cpu":
+        return ransac_pnp_reference(cam, pts3d, px, valid, u, inlier_px, refine_iters,
+                                    T_init, weights)
+    if not pts3d.is_cuda:
+        raise ValueError(f"unsupported device {pts3d.device}")
+    return dict(zip(OUTPUTS, launch(cam.fx, cam.fy, cam.cx, cam.cy, pts3d, px, valid, u,
+                                    T_init, weights, inlier_px, refine_iters)))
+
+
+ransac_pnp.launches = 0
+
+
+def ransac_pnp_reference(cam: Pinhole, pts3d: torch.Tensor, px: torch.Tensor,
+                         valid: torch.Tensor, u: torch.Tensor, inlier_px: float = 2.0,
+                         refine_iters: int = 10, T_init: torch.Tensor | None = None,
+                         weights: torch.Tensor | None = None, stages: bool = False) -> dict:
+    """The plain version of ``ransac_pnp`` on the draws ``u``: torch ops, one
+    device op per scalar step of the unrolled solves. ``stages``: also return
+    the samples ``samp_idx`` (H, 6), their duplicate flags ``samp_dup`` (H,),
+    the hypotheses ``T_hyp`` (H', 4, 4), their scores ``msac`` (H',) and the
+    chosen one's index ``best`` (1,)."""
     n = pts3d.shape[0]
+    num_hypotheses = u.shape[0]
     dev, dt = pts3d.device, pts3d.dtype
     if weights is None:
         weights = torch.ones(n, dtype=dt, device=dev)
-    if u is None:
-        u = draw_uniforms(num_hypotheses, generator, dt, dev)
-    elif u.shape != (num_hypotheses, MIN_SAMPLE):
-        raise ValueError(f"u must be {(num_hypotheses, MIN_SAMPLE)}, got {tuple(u.shape)}")
     norm2d = _normalize_pixels(cam, px)
 
     # Compact-then-draw: valid indices first (stable), then (H, 6) uniform
@@ -183,14 +233,8 @@ def ransac_pnp(cam: Pinhole, pts3d: torch.Tensor, px: torch.Tensor,
     if T_init is not None:
         T_hyp = torch.cat([T_hyp, T_init[None]], dim=0)
 
-    e2 = _reproj_err2(cam, T_hyp, pts3d, px)                 # (H', N)
     thr2 = inlier_px * inlier_px
-    inl = (e2 <= thr2) & valid[None, :]
-    msac = torch.sum(torch.where(valid[None, :], torch.clamp(e2, max=thr2), 0.0) *
-                     weights[None, :], dim=-1)
-    hyp_dup = torch.cat([samp_dup, torch.zeros(T_hyp.shape[0] - num_hypotheses,
-                                               dtype=torch.bool, device=dev)])
-    msac = torch.where(torch.isnan(msac) | hyp_dup, torch.inf, msac)
+    msac, inl = msac_scores(cam, T_hyp, pts3d, px, valid, weights, thr2, samp_dup)
     best = torch.argmin(msac).reshape(1)  # a 1-d index: no read back to the host
     T_out, inl_out = T_hyp.index_select(0, best)[0], inl.index_select(0, best)[0]
 
@@ -206,5 +250,140 @@ def ransac_pnp(cam: Pinhole, pts3d: torch.Tensor, px: torch.Tensor,
 
     num_valid = torch.clamp(torch.sum(valid), min=1)
     num_inl = torch.sum(inl_out)
-    return {"T": T_out, "inliers": inl_out, "num_inliers": num_inl,
-            "inlier_ratio": num_inl / num_valid, "ok": num_inl >= MIN_SAMPLE}
+    out = {"T": T_out, "inliers": inl_out, "num_inliers": num_inl,
+           "inlier_ratio": num_inl / num_valid, "ok": num_inl >= MIN_SAMPLE}
+    if stages:
+        out.update(samp_idx=samp_idx, samp_dup=samp_dup, T_hyp=T_hyp, msac=msac, best=best)
+    return out
+
+
+def msac_scores(cam: Pinhole, T_hyp: torch.Tensor, pts3d: torch.Tensor, px: torch.Tensor,
+                valid: torch.Tensor, weights: torch.Tensor, thr2: float,
+                samp_dup: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MSAC scores (H',) of the hypotheses (H', 4, 4), inf where the sum
+    is NaN or the hypothesis's samples repeat a point (``samp_dup``, (H,):
+    the first H hypotheses), and their inlier masks (H', N)."""
+    e2 = _reproj_err2(cam, T_hyp, pts3d, px)                 # (H', N)
+    inl = (e2 <= thr2) & valid[None, :]
+    msac = torch.sum(torch.where(valid[None, :], torch.clamp(e2, max=thr2), 0.0) *
+                     weights[None, :], dim=-1)
+    hyp_dup = torch.cat([samp_dup, torch.zeros(T_hyp.shape[0] - samp_dup.shape[0],
+                                               dtype=torch.bool, device=samp_dup.device)])
+    return torch.where(torch.isnan(msac) | hyp_dup, torch.inf, msac), inl
+
+
+def _reject(cams, pts3d, px, valid, u, T_init, weights) -> None:
+    """Raise the error that ``launch``'s fast check found."""
+    lead = tuple(pts3d.shape[:-2])
+    want = {"pts3d": (pts3d, _F32, lead + (pts3d.shape[-2], 3)),
+            "px": (px, _F32, lead + (pts3d.shape[-2], 2)),
+            "valid": (valid, torch.bool, lead + (pts3d.shape[-2],)),
+            "u": (u, _F32, lead + (u.shape[-2], MIN_SAMPLE)),
+            "T_init": (T_init, _F32, lead + (4, 4)),
+            "weights": (weights, _F32, lead + (pts3d.shape[-2],))}
+    for name, (t, dtype, shape) in want.items():
+        if t is not None and (t.dtype != dtype or tuple(t.shape) != shape
+                              or t.device != pts3d.device):
+            raise ValueError(f"{name} must be {dtype} {shape} on {pts3d.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    for c in cams:
+        if c.dtype != _F32 or c.device != pts3d.device or c.dim() != 0:
+            raise ValueError(f"the intrinsics must be 0-d float32 tensors on {pts3d.device}, "
+                             f"got {c.dtype} {tuple(c.shape)} on {c.device}")
+    raise ValueError(f"ransac_pnp needs 1 <= N <= {_MAX_POINTS} points and at least one "
+                     f"hypothesis, got pts3d {tuple(pts3d.shape)}, u {tuple(u.shape)}")
+
+
+# csrc/pnp.cu keeps a sequence's valid indices in shared memory (4 bytes each).
+_MAX_POINTS = 227 * 1024 // 4
+
+
+def launch(fx, fy, cx, cy, pts3d: torch.Tensor, px: torch.Tensor, valid: torch.Tensor,
+           u: torch.Tensor, T_init: torch.Tensor | None, weights: torch.Tensor | None,
+           inlier_px: float, refine_iters: int, stages: bool = False) -> tuple:
+    """The one CUDA route of ``ransac_pnp``, of its op and of the op's batch
+    rule: the three kernels of ``csrc/pnp.cu`` (entry
+    ``svo_ransac_pnp_batched``) on one sequence ((N, 3) points, (H, 6)
+    draws, ...) or B on a sequence axis ((B, N, 3), (B, H, 6), ...), counted
+    as ``STAGES`` launches. The intrinsics are 0-d tensors, one rig for all.
+    Returns (T, inliers, num_inliers, inlier_ratio, ok); ``stages`` adds the
+    samples (int32), their duplicate flags, the hypotheses (..., H', 4, 4),
+    their scores and the chosen one's index (int32), as
+    ``ransac_pnp_reference`` names them (``STAGE_OUTPUTS``)."""
+    lead = tuple(pts3d.shape[:-2])
+    n, h = pts3d.shape[-2], u.shape[-2]
+    cams = (fx, fy, cx, cy)
+    if not (pts3d.dtype == _F32 and pts3d.dim() in (2, 3) and pts3d.shape[-1] == 3
+            and px.dtype == _F32 and tuple(px.shape) == lead + (n, 2)
+            and valid.dtype == torch.bool and tuple(valid.shape) == lead + (n,)
+            and u.dtype == _F32 and tuple(u.shape) == lead + (h, MIN_SAMPLE)
+            and (T_init is None or (T_init.dtype == _F32
+                                    and tuple(T_init.shape) == lead + (4, 4)))
+            and (weights is None or (weights.dtype == _F32
+                                     and tuple(weights.shape) == lead + (n,)))
+            and all(c.dtype == _F32 and c.device == pts3d.device and c.dim() == 0
+                    for c in cams)
+            and all(t is None or t.device == pts3d.device
+                    for t in (px, valid, u, T_init, weights))
+            and 1 <= n <= _MAX_POINTS and h >= 1):
+        _reject(cams, pts3d, px, valid, u, T_init, weights)
+    b = lead[0] if lead else 1
+    hp = h + (T_init is not None)
+    new = pts3d.new_empty
+    samp = new(lead + (h, MIN_SAMPLE), dtype=torch.int32)
+    dup = new(lead + (h,), dtype=torch.bool)
+    hyp = new(lead + (hp, 12))
+    msac = new(lead + (hp,))
+    best = new(lead, dtype=torch.int32)
+    T = new(lead + (4, 4))
+    inliers = new(lead + (n,), dtype=torch.bool)
+    num_inliers = new(lead, dtype=torch.int64)
+    ratio = new(lead)
+    ok = new(lead, dtype=torch.bool)
+    if b > 0:
+        # Contiguous inputs held until the launch is queued (a copy freed
+        # earlier could be handed to the next one).
+        ins = [None if t is None else t.contiguous()
+               for t in (pts3d, px, valid, weights, T_init, u, *cams)]
+        index = pts3d.get_device()
+        err = native.entry("svo_ransac_pnp_batched")(
+            *(None if t is None else t.data_ptr() for t in ins), n, h, b,
+            inlier_px, inlier_px * inlier_px, refine_iters,
+            *(t.data_ptr() for t in (samp, dup, hyp, msac, best, T, inliers, num_inliers, ratio,
+                                     ok)),
+            index, cuda_stream.current_stream(index))
+        if err != 0:
+            raise RuntimeError(f"ransac_pnp launch failed: cudaError {err}")
+        ransac_pnp.launches += STAGES
+    out = (T, inliers, num_inliers, ratio, ok)
+    if not stages:
+        return out
+    T_hyp = torch.zeros(lead + (hp, 4, 4), dtype=_F32, device=pts3d.device)
+    T_hyp[..., :3, :3] = hyp[..., :9].reshape(lead + (hp, 3, 3))
+    T_hyp[..., :3, 3] = hyp[..., 9:]
+    T_hyp[..., 3, 3] = 1.0
+    return out + (samp, dup, T_hyp, msac, best)
+
+
+def ransac_pnp_batched(fx, fy, cx, cy, pts3d: torch.Tensor, px: torch.Tensor,
+                       valid: torch.Tensor, u: torch.Tensor, T_init: torch.Tensor | None,
+                       weights: torch.Tensor | None, inlier_px: float,
+                       refine_iters: int) -> tuple:
+    """``ransac_pnp`` on a sequence axis: (B, N, 3) points, (B, N, 2) pixels,
+    (B, N) masks, (B, H, 6) draws, (B, 4, 4) or None initial poses, (B, N) or
+    None weights, 0-d intrinsics (one rig). A CUDA input is one call
+    of ``launch`` (``STAGES`` launches for all B); a CPU input runs the plain
+    version once per sequence. Returns the outputs stacked on the axis."""
+    if pts3d.device.type == "cpu":
+        at = lambda t, s: None if t is None else t[s]
+        outs = [ransac_pnp_reference(Pinhole(fx, fy, cx, cy), pts3d[s], px[s], valid[s],
+                                     u[s], inlier_px, refine_iters, at(T_init, s),
+                                     at(weights, s))
+                for s in range(pts3d.shape[0])]
+        if not outs:
+            raise ValueError("ransac_pnp_batched needs at least one sequence on the CPU")
+        return tuple(torch.stack([o[k] for o in outs]) for k in OUTPUTS)
+    if pts3d.device.type != "cuda":
+        raise ValueError(f"unsupported device {pts3d.device}")
+    return launch(fx, fy, cx, cy, pts3d, px, valid, u, T_init, weights, inlier_px,
+                  refine_iters)

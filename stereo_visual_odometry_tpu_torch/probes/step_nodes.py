@@ -5,10 +5,12 @@ step's CUDA graph replays, ``models/step_graph.py``) that launch device
 work, by the stage of the step that called them (the line of
 ``frontend.step_fn``) and by the innermost function of ``ops/`` or
 ``models/``. Views and allocations launch nothing and are left out; the
-hand-written kernels (K1-K4) go through their own entry points and are
-counted by their wrappers instead. On the card nearly every counted op is
-one kernel, so the split is that of the graph's nodes per replay: it says
-which stage a fused kernel would take nodes from.
+hand-written kernels (K1-K4, RANSAC-PnP's three on the card) go through
+their own entry points and are counted by their wrappers instead:
+``kernels`` gives each wrapper's launches in the step (``launches``, the
+step graph's counters). On the card nearly every counted op is one kernel,
+so the split, with ``kernels``, is that of the graph's nodes per replay: it
+says which stage a fused kernel would take nodes from.
 
     python -m stereo_visual_odometry_tpu_torch.probes.step_nodes               # dense LK, cuda:0
     python -m stereo_visual_odometry_tpu_torch.probes.step_nodes --lk-kernel cell
@@ -65,15 +67,20 @@ class _Count(TorchDispatchMode):
 def count(step_fn, state, img_l, img_r) -> dict:
     """The counted ops of one ``step_fn(state, img_l, img_r)`` (the state
     is read, not replaced): ``total``, ``by_stage`` and ``by_function``,
-    each most frequent first."""
+    each most frequent first, and ``kernels``, the hand-written kernels'
+    launches by wrapper (those that launched)."""
+    from ..models.step_graph import KERNELS
     mode = _Count()
+    before = [fn.launches for fn in KERNELS]
     with mode:
         step_fn(state, img_l, img_r)
     if img_l.is_cuda:
         torch.cuda.synchronize(img_l.device)
+    kernels = {fn.__name__: fn.launches - n for fn, n in zip(KERNELS, before)
+               if fn.launches != n}
     return {"total": sum(mode.by_stage.values()),
             "by_stage": dict(mode.by_stage.most_common()),
-            "by_function": dict(mode.by_function.most_common())}
+            "by_function": dict(mode.by_function.most_common()), "kernels": kernels}
 
 
 def main(argv=None) -> int:

@@ -1,7 +1,7 @@
-"""Card-only tests of the port: the CUDA kernels K1-K8 against their plain
-versions, the LK (dense and cell) and ORB slices on cuda against the
-same slices on the CPU, and the step's CUDA graph (``models/step_graph.py``)
-against the eager step.
+"""Card-only tests of the port: the CUDA kernels K1-K8 and RANSAC-PnP's
+three (``csrc/pnp.cu``) against their plain versions, the LK (dense and
+cell) and ORB slices on cuda against the same slices on the CPU, and the
+step's CUDA graph (``models/step_graph.py``) against the eager step.
 
 The probes (``probes/``): the bench's kernel parity block, and the parity
 checks of ``lk_block``, ``lk_breakdown`` and ``roll``, each launching
@@ -45,7 +45,13 @@ one iteration earlier or later, which moves it by less than eps); K5 and
 K6 are also held to the K3 and K4 kernels. K7 exact (a copy), launched
 through its C entry ``svo_roll``; the wrapper refuses bad inputs with a
 ValueError. K8's checksums within 1e-4 of their largest value (sums of ~441
-products in another order). The slices:
+products in another order). RANSAC-PnP's kernels against the plain version
+on the card: samples, duplicate flags, inlier masks and counts exact, T
+within 1e-4 (``test_torch_pnp.py``'s tolerance: float32 Gauss-Newton summed
+in another order), each hypothesis's score within 1e-4 relative of the
+plain scoring of the same pose, and the chosen hypothesis exact where the
+scores leave no near tie; on test data with no residual near a gate. The
+slices:
 accept flags equal and poses within 1e-3 m / 1e-4, with the same RANSAC
 draws fed to both devices — the GPU sums in another order than the CPU
 (TF32 is off), nothing else differs. The graph: its replay equals the eager
@@ -795,6 +801,209 @@ def test_k8_call_is_one_kernel(label):
     assert len(device_work) == 1 and "lk_block_cell_kernel" in device_work[0], device_work
 
 
+# ---- RANSAC-PnP's kernels (csrc/pnp.cu) --------------------------------- #
+
+def _pnp_inputs(S, n, H, seed=0, n_valid=None, dup=False):
+    """``probes/pnp_timing.problem``: S PnP problems of n points on the card,
+    0.05 px of noise and 20% outliers 5-50 px off (none near LK's 0.5 px or
+    ORB's 2 px gate), ``T_init`` near the motion, ORB's weights."""
+    from stereo_visual_odometry_tpu_torch.probes import pnp_timing
+    return pnp_timing.problem(S, n, H, seed=seed, n_valid=n_valid, dup=dup)
+
+
+def _pnp_cam():
+    from stereo_visual_odometry_tpu_torch.probes import pnp_timing
+    return pnp_timing.camera()
+
+
+def _pnp_fn(cam, H, init, orb, refine_iters=6):
+    """``ransac_pnp`` on one sequence's (pts, px, valid, u, T_init, weights)."""
+    kw = dict(num_hypotheses=H, inlier_px=2.0 if orb else 0.5, refine_iters=refine_iters)
+    return lambda p, q, v, u, ti, w: tpnp.ransac_pnp(
+        cam, p, q, v, u=u, T_init=ti if init else None, weights=w if orb else None, **kw)
+
+
+_PNP_ARGS = ("pts", "px", "valid", "u", "T_init", "weights")
+
+
+def _pnp_plain(cam, x, s, H, init, orb, refine_iters=6):
+    """The plain version on the card, sequence s, with its stages."""
+    return tpnp.ransac_pnp_reference(
+        cam, x["pts"][s], x["px"][s], x["valid"][s], x["u"][s], 2.0 if orb else 0.5,
+        refine_iters, x["T_init"][s] if init else None, x["weights"][s] if orb else None,
+        stages=True)
+
+
+def _pnp_stages(cam, x, init, orb, refine_iters=6):
+    """The kernels on the whole stack through ``pnp.launch``, with the
+    stages: a dict of ``OUTPUTS`` and ``STAGE_OUTPUTS``."""
+    out = tpnp.launch(cam.fx, cam.fy, cam.cx, cam.cy, x["pts"], x["px"], x["valid"], x["u"],
+                      x["T_init"] if init else None, x["weights"] if orb else None,
+                      2.0 if orb else 0.5, refine_iters, stages=True)
+    return dict(zip(tpnp.OUTPUTS + tpnp.STAGE_OUTPUTS, out))
+
+
+def _assert_pnp_matches_plain(got, want, s, compare_T=True):
+    """Sequence s of the kernels' outputs and stages against the plain
+    version's: samples, duplicate flags, inliers and counts exact, T within
+    1e-4; the scores of the kernels' own hypotheses as the plain version
+    scores them (within 1e-4 relative, inf alike); the chosen hypothesis the
+    first lowest of the kernels' scores, and the plain version's own where
+    its lowest score leads the next by 0.1% and the kernels' hypothesis
+    scores the same."""
+    assert torch.equal(got["samp_idx"][s].long(), want["samp_idx"])
+    assert torch.equal(got["samp_dup"][s], want["samp_dup"])
+    assert int(got["best"][s]) == int(torch.argmin(got["msac"][s]))
+    w = want["msac"]
+    order = torch.argsort(w)
+    p = int(order[0])
+    if (len(w) > 1 and torch.isfinite(w[p]) and w[order[1]] > w[p] * 1.001
+            and torch.isclose(got["msac"][s][p], w[p], rtol=1e-4)):
+        assert int(got["best"][s]) == p
+    if compare_T:
+        torch.testing.assert_close(got["T"][s], want["T"], atol=1e-4, rtol=0, equal_nan=True)
+    assert torch.equal(got["inliers"][s], want["inliers"])
+    assert int(got["num_inliers"][s]) == int(want["num_inliers"])
+    assert bool(got["ok"][s]) == bool(want["ok"])
+    assert float(got["inlier_ratio"][s]) == float(want["inlier_ratio"])
+
+
+# name -> (S, N, H, T_init given, ORB's weights and gate)
+PNP_CASES = {"lk_s1": (1, 1024, 256, True, False),
+             "lk_s1_h128_no_init": (1, 1024, 128, False, False),
+             "orb_s1": (1, 2048, 256, True, True),
+             "lk_s11": (11, 1024, 256, True, False),
+             "orb_s11_h128_no_init": (11, 2048, 128, False, True)}
+
+
+@pytest.mark.parametrize("case", list(PNP_CASES))
+def test_pnp_kernels_match_the_plain_version(case):
+    """The wrapper on CUDA tensors (S = 1 directly, S = 11 under
+    ``torch.func.vmap`` through the op's batch rule) launches the three
+    kernels once for all S, and matches the plain version on the card
+    sequence by sequence (``_assert_pnp_matches_plain``); every sequence
+    finds the true motion."""
+    need_cuda()
+    S, n, H, init, orb = PNP_CASES[case]
+    x = _pnp_inputs(S, n, H, seed=len(case))
+    cam = _pnp_cam()
+    fn = _pnp_fn(cam, H, init, orb)
+    args = [x[k] for k in _PNP_ARGS]
+    before = tpnp.ransac_pnp.launches
+    if S == 1:
+        got = {k: v[None] for k, v in fn(*(a[0] for a in args)).items()}
+    else:
+        got = torch.func.vmap(fn)(*args)
+    torch.cuda.synchronize()
+    assert tpnp.ransac_pnp.launches == before + tpnp.STAGES
+    stages = _pnp_stages(cam, x, init, orb)
+    for k in tpnp.OUTPUTS:
+        assert torch.equal(stages[k], got[k]), k
+    thr2 = (2.0 if orb else 0.5) ** 2
+    for s in range(S):
+        want = _pnp_plain(cam, x, s, H, init, orb)
+        weights = x["weights"][s] if orb else torch.ones_like(x["weights"][s])
+        rescored, _ = tpnp.msac_scores(cam, stages["T_hyp"][s], x["pts"][s], x["px"][s],
+                                       x["valid"][s], weights, thr2, stages["samp_dup"][s])
+        finite = torch.isfinite(rescored)
+        assert torch.equal(finite, torch.isfinite(stages["msac"][s]))
+        torch.testing.assert_close(stages["msac"][s][finite], rescored[finite], rtol=1e-4,
+                                   atol=1e-4)
+        _assert_pnp_matches_plain(stages, want, s)
+        torch.testing.assert_close(got["T"][s], x["T_gt"][s], atol=2e-2, rtol=0)
+        assert bool(got["ok"][s])
+
+
+def test_pnp_kernels_repeat_and_replay_bit_for_bit():
+    """Two calls give the same bits; a call captured in a CUDA graph is three
+    kernel nodes and nothing else, at S = 1 and at S = 11 under vmap, and its
+    replays equal the eager calls bit for bit, on the captured draws and on
+    new ones copied in."""
+    need_cuda()
+    cam = _pnp_cam()
+    fn = _pnp_fn(cam, 256, True, True)
+    for S in (1, 11):
+        x = _pnp_inputs(S, 2048, 256, seed=S)
+        args = [x[k] if S > 1 else x[k][0] for k in _PNP_ARGS]
+        call = (lambda: fn(*args)) if S == 1 else (lambda: torch.func.vmap(fn)(*args))
+        a, b = call(), call()
+        for k in tpnp.OUTPUTS:
+            assert torch.equal(a[k], b[k]), k
+        assert _graph_node_types(call) == [0] * tpnp.STAGES
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for step in range(2):
+            if step:
+                args[3].copy_(torch.rand_like(args[3]))
+            graph.replay()
+            torch.cuda.synchronize()
+            want = call()
+            for k in tpnp.OUTPUTS:
+                assert torch.equal(out[k], want[k]), (S, step, k)
+
+
+# name -> (n_valid, duplicate samples, T_init given, T compared)
+PNP_EDGES = {"few_valid": (4, False, True, True),
+             "none_valid": (0, False, True, True),
+             "none_valid_no_init": (0, False, False, True),
+             "duplicates": (None, True, True, True),
+             "duplicates_no_init": (None, True, False, False)}
+
+
+@pytest.mark.parametrize("edge", list(PNP_EDGES))
+def test_pnp_kernels_edge_cases(edge):
+    """Fewer than 6 valid points, none at all, and every sample a repeat,
+    with and without ``T_init``: the kernels against the plain version on
+    the card as in ``test_pnp_kernels_match_the_plain_version``. Every
+    hypothesis then scores inf but ``T_init``, which wins; without it the
+    first hypothesis wins, whose pose a repeated sample leaves undetermined
+    (each version's own rounding picks one), so there T is not compared."""
+    need_cuda()
+    n_valid, dup, init, compare_T = PNP_EDGES[edge]
+    x = _pnp_inputs(2, 1024, 128, seed=5, n_valid=n_valid, dup=dup)
+    cam = _pnp_cam()
+    stages = _pnp_stages(cam, x, init, False)
+    for s in range(2):
+        want = _pnp_plain(cam, x, s, 128, init, False)
+        assert bool(stages["samp_dup"][s].all())
+        assert int(stages["best"][s]) == (128 if init else 0)
+        _assert_pnp_matches_plain(stages, want, s, compare_T=compare_T)
+        if n_valid == 0:
+            assert not bool(stages["inliers"][s].any()) and not bool(stages["ok"][s])
+        if n_valid == 0 and init:
+            assert torch.equal(stages["T"][s], x["T_init"][s])
+
+
+def test_pnp_launch_rejects_bad_inputs():
+    """``pnp.launch`` raises a ValueError, and launches nothing, on a dtype,
+    shape or device it cannot take."""
+    need_cuda()
+    cam = _pnp_cam()
+    x = {k: v[0] for k, v in _pnp_inputs(1, 64, 16).items()}
+    good = dict(pts3d=x["pts"], px=x["px"], valid=x["valid"], u=x["u"], T_init=x["T_init"],
+                weights=x["weights"])
+    bad = [dict(pts3d=x["pts"].double()), dict(valid=x["valid"].float()),
+           dict(px=x["px"][:10]), dict(u=x["u"][:, :5]), dict(T_init=x["T_init"][:3]),
+           dict(weights=x["weights"].cpu()), dict(pts3d=x["pts"][:0], px=x["px"][:0],
+                                                  valid=x["valid"][:0],
+                                                  weights=x["weights"][:0])]
+    before = tpnp.ransac_pnp.launches
+    for change in bad:
+        kw = dict(good, **change)
+        with pytest.raises(ValueError):
+            tpnp.launch(cam.fx, cam.fy, cam.cx, cam.cy, kw["pts3d"], kw["px"], kw["valid"],
+                        kw["u"], kw["T_init"], kw["weights"], 0.5, 6)
+    with pytest.raises(ValueError):
+        tpnp.launch(cam.fx.cpu(), cam.fy, cam.cx, cam.cy, *good.values(), 0.5, 6)
+    assert tpnp.ransac_pnp.launches == before
+
+
 # ---- slice 4's batched entries (their one-kernel test with the others) ---- #
 
 # probe -> its parity check on the card and the launches that check makes.
@@ -949,7 +1158,7 @@ def test_k6_k8_in_a_cuda_graph_match_eager():
 
 
 COUNTERS = (patch.extract_windows_int, patch.extract_patches,
-            lk_cell.level_track_cell, lk_v1.level_track_v1)
+            lk_cell.level_track_cell, lk_v1.level_track_v1, tpnp.ransac_pnp)
 
 
 def _slice_on_both_devices(monkeypatch, seq, vo, chunk):
@@ -972,7 +1181,7 @@ def _slice_on_both_devices(monkeypatch, seq, vo, chunk):
         assert not queue
         runs[device] = (sys_, traj, *(fn.launches for fn in COUNTERS))
     (s_c, t_c, *n_c), (s_g, t_g, *n_g) = runs["cpu"], runs["cuda"]
-    assert n_c == [0, 0, 0, 0]
+    assert n_c == [0] * len(COUNTERS)
     assert [m["accept"] for m in s_g.metrics] == [m["accept"] for m in s_c.metrics]
     np.testing.assert_allclose(t_g[:, :3, 3], t_c[:, :3, 3], atol=1e-3, rtol=0)
     np.testing.assert_allclose(t_g[:, :3, :3], t_c[:, :3, :3], atol=1e-4, rtol=0)
@@ -984,17 +1193,18 @@ def test_slice_on_cuda_matches_cpu(monkeypatch):
     seq = synthetic.render_sequence(n_frames=8, h=192, w=256, fx=300.0)
     vo = VOConfig(height=192, width=256, max_features=256, num_hypotheses=128,
                   min_features_track=8, min_inlier_rate=0.3)
-    assert _slice_on_both_devices(monkeypatch, seq, vo, chunk=4) == [1 + 27 * 7, 0, 0, 0]
+    assert _slice_on_both_devices(monkeypatch, seq, vo, chunk=4) == [1 + 27 * 7, 0, 0, 0,
+                                                                     3 * 7]
 
 
 def test_cell_slice_on_cuda_matches_cpu(monkeypatch):
     """``lk_kernel='cell'``: 6 K3 launches per tracked frame, K1 only for
-    the subpixel refine (once per frame)."""
+    the subpixel refine (once per frame), PnP's 3 per tracked frame."""
     need_cuda()
     seq = synthetic.render_sequence(n_frames=8, h=192, w=256, fx=300.0)
     vo = VOConfig(height=192, width=256, max_features=256, num_hypotheses=128,
                   min_features_track=8, min_inlier_rate=0.3, lk_kernel="cell")
-    assert _slice_on_both_devices(monkeypatch, seq, vo, chunk=4) == [8, 0, 6 * 7, 0]
+    assert _slice_on_both_devices(monkeypatch, seq, vo, chunk=4) == [8, 0, 6 * 7, 0, 3 * 7]
 
 
 def test_orb_slice_on_cuda_matches_cpu(monkeypatch):
@@ -1005,30 +1215,34 @@ def test_orb_slice_on_cuda_matches_cpu(monkeypatch):
         seq[k] = (seq[k] + rng.normal(0, 1.0, seq[k].shape)).astype(np.float32)
     vo = VOConfig(mode="orb", height=128, width=320, max_features=256, orb_levels=4,
                   num_hypotheses=128, min_features_track=8, min_inlier_rate=0.3)
-    # Per frame (the init included): two images x 4 levels, one K1 and one K2 each.
-    assert _slice_on_both_devices(monkeypatch, seq, vo, chunk=4) == [8 * 8, 8 * 8, 0, 0]
+    # Per frame (the init included): two images x 4 levels, one K1 and one K2
+    # each; PnP's 3 per tracked frame.
+    assert _slice_on_both_devices(monkeypatch, seq, vo, chunk=4) == [8 * 8, 8 * 8, 0, 0, 3 * 7]
 
 
 SMALL = dict(height=192, width=256, max_features=256, num_hypotheses=128,
              min_features_track=8, min_inlier_rate=0.3)
+PNP = {"ransac_pnp": tpnp.STAGES}  # every tracked frame's RANSAC-PnP (csrc/pnp.cu)
 GRAPH_PATHS = {  # VOConfig, and the kernels one step launches
-    "dense": (SMALL, {"extract_windows_int": 27}),
+    "dense": (SMALL, {"extract_windows_int": 27, **PNP}),
     "cell": (dict(SMALL, lk_kernel="cell"),
-             {"extract_windows_int": 1, "level_track_cell": 6}),
-    "v1": (dict(SMALL, lk_kernel="v1"), {"extract_windows_int": 1, "level_track_v1": 6}),
-    "xla": (dict(SMALL, lk_backend="xla"), {"extract_windows_int": 7}),
-    "no_sweep": (dict(SMALL, lk_sweep=False), {"extract_windows_int": 45}),
-    "not_predictive": (dict(SMALL, lk_predictive=False), {"extract_windows_int": 61}),
+             {"extract_windows_int": 1, "level_track_cell": 6, **PNP}),
+    "v1": (dict(SMALL, lk_kernel="v1"),
+           {"extract_windows_int": 1, "level_track_v1": 6, **PNP}),
+    "xla": (dict(SMALL, lk_backend="xla"), {"extract_windows_int": 7, **PNP}),
+    "no_sweep": (dict(SMALL, lk_sweep=False), {"extract_windows_int": 45, **PNP}),
+    "not_predictive": (dict(SMALL, lk_predictive=False), {"extract_windows_int": 61, **PNP}),
     "orb": (dict(SMALL, mode="orb", height=128, width=320, orb_levels=4),
-            {"extract_windows_int": 8, "extract_patches": 8}),
-    "lk_persistent": (dict(SMALL, persistent_tracks=True), {"extract_windows_int": 27}),
+            {"extract_windows_int": 8, "extract_patches": 8, **PNP}),
+    "lk_persistent": (dict(SMALL, persistent_tracks=True), {"extract_windows_int": 27, **PNP}),
     "orb_persistent": (dict(SMALL, mode="orb", height=128, width=320, orb_levels=4,
                             persistent_tracks=True),
-                       {"extract_windows_int": 8, "extract_patches": 8}),
+                       {"extract_windows_int": 8, "extract_patches": 8, **PNP}),
 }
 KERNEL_NAMES = {"extract_windows_int": "extract_windows_int_kernel",  # counter -> kernel
                 "extract_patches": "extract_patches_kernel",
-                "level_track_cell": "lk_level_kernel", "level_track_v1": "lk_level_kernel"}
+                "level_track_cell": "lk_level_kernel", "level_track_v1": "lk_level_kernel",
+                "ransac_pnp": "pnp_"}  # pnp_{hypotheses,score,polish}_kernel
 
 
 def _graph_sequence(vo, n_frames=8):
@@ -1184,27 +1398,29 @@ def test_graph_rejects_another_shape_or_dtype():
 # ``<mode>_yaw`` run the bench's stress variants (``probes/bench.py``'s
 # ``STRESS_VARIANTS``) with the shipping config; their bounds are twice the
 # JAX reference's TPU ATE on them, never below the clean row's.
+PNP_FRAMES = {"ransac_pnp": (0, tpnp.STAGES)}  # none at the first frame
+LK_FRAMES = {"extract_windows_int": (1, 27), **PNP_FRAMES}
+ORB_FRAMES = {"extract_windows_int": (16, 16), "extract_patches": (16, 16), **PNP_FRAMES}
 BENCH_PATHS = {
     "cell": (dict(lk_kernel="cell"), 49, 16,
-             {"extract_windows_int": (1, 1), "level_track_cell": (0, 6)}, 0.05, 0, 0.95),
+             {"extract_windows_int": (1, 1), "level_track_cell": (0, 6), **PNP_FRAMES}, 0.05,
+             0, 0.95),
     "v1": (dict(lk_kernel="v1"), 49, 16,
-           {"extract_windows_int": (1, 1), "level_track_v1": (0, 6)}, 0.05, 0, 0.95),
-    "xla": (dict(lk_backend="xla"), 16, 8, {"extract_windows_int": (1, 7)}, 0.15, 1, 0.9),
-    "no_sweep": (dict(lk_sweep=False), 16, 8, {"extract_windows_int": (1, 45)}, 0.15, 1, 0.9),
-    "not_predictive": (dict(lk_predictive=False), 16, 8, {"extract_windows_int": (1, 61)},
-                       0.15, 1, 0.9),
-    "lk_persistent": (dict(persistent_tracks=True), 49, 16, {"extract_windows_int": (1, 27)},
-                      0.05, 0, 0.95),
+           {"extract_windows_int": (1, 1), "level_track_v1": (0, 6), **PNP_FRAMES}, 0.05, 0,
+           0.95),
+    "xla": (dict(lk_backend="xla"), 16, 8, {"extract_windows_int": (1, 7), **PNP_FRAMES}, 0.15,
+            1, 0.9),
+    "no_sweep": (dict(lk_sweep=False), 16, 8, {"extract_windows_int": (1, 45), **PNP_FRAMES},
+                 0.15, 1, 0.9),
+    "not_predictive": (dict(lk_predictive=False), 16, 8,
+                       {"extract_windows_int": (1, 61), **PNP_FRAMES}, 0.15, 1, 0.9),
+    "lk_persistent": (dict(persistent_tracks=True), 49, 16, LK_FRAMES, 0.05, 0, 0.95),
     "orb_persistent": (dict(mode="orb", max_features=2048, persistent_tracks=True), 49, 16,
-                       {"extract_windows_int": (16, 16), "extract_patches": (16, 16)}, 0.07,
-                       0, 0.95),
-    "lk_flicker": (dict(), 49, 16, {"extract_windows_int": (1, 27)}, 0.097, 0, 0.95),
-    "lk_yaw": (dict(), 49, 16, {"extract_windows_int": (1, 27)}, 0.05, 0, 0.95),
-    "orb_flicker": (dict(mode="orb", max_features=2048), 49, 16,
-                    {"extract_windows_int": (16, 16), "extract_patches": (16, 16)}, 0.132, 0,
-                    0.95),
-    "orb_yaw": (dict(mode="orb", max_features=2048), 49, 16,
-                {"extract_windows_int": (16, 16), "extract_patches": (16, 16)}, 0.144, 0, 0.95),
+                       ORB_FRAMES, 0.07, 0, 0.95),
+    "lk_flicker": (dict(), 49, 16, LK_FRAMES, 0.097, 0, 0.95),
+    "lk_yaw": (dict(), 49, 16, LK_FRAMES, 0.05, 0, 0.95),
+    "orb_flicker": (dict(mode="orb", max_features=2048), 49, 16, ORB_FRAMES, 0.132, 0, 0.95),
+    "orb_yaw": (dict(mode="orb", max_features=2048), 49, 16, ORB_FRAMES, 0.144, 0, 0.95),
 }
 
 
@@ -1649,14 +1865,14 @@ def test_batched_graph_replay_equals_eager_vmapped_step(vo_kw):
 
 
 def test_batched_graph_launches_per_replay_as_unbatched():
-    """K1 per batched replay at S = 4 equals S = 1's (27 on the dense path):
-    the batch rule launches once for all sequences."""
+    """K1 and PnP per batched replay at S = 4 equal S = 1's (27 and 3 on the
+    dense path): the batch rules launch once for all sequences."""
     need_cuda()
     counts = {}
     for S in (1, 4):
         _, _, graph = _batched_run({}, S, n_frames=3)
         counts[S] = graph.per_replay
-    assert counts[1] == counts[4] == {"extract_windows_int": 27}, counts
+    assert counts[1] == counts[4] == {"extract_windows_int": 27, **PNP}, counts
 
 
 def test_prior_solve_with_spans_matches_the_plain_reference():
@@ -1768,7 +1984,8 @@ def _mesh_inputs(n_frames=4, S=4):
 
 def test_mesh_shards_capture_their_own_graphs_on_one_card():
     """A ``seq`` mesh naming cuda:0 twice: two shards, each with its own
-    batched step graph captured on cuda:0 (27 K1 per replay, as unsplit),
+    batched step graph captured on cuda:0 (27 K1 and 3 PnP launches per
+    replay, as unsplit),
     its replays bit for bit the eager sharded step on the same draws."""
     need_cuda()
     from stereo_visual_odometry_tpu_torch.parallel import sequences
@@ -1786,7 +2003,7 @@ def test_mesh_shards_capture_their_own_graphs_on_one_card():
     graphs = [s.graph(2) for s in step.shards]
     assert graphs[0] is not graphs[1]
     assert all(g.device == torch.device("cuda", 0) for g in graphs)
-    assert [g.per_replay for g in graphs] == [{"extract_windows_int": 27}] * 2
+    assert [g.per_replay for g in graphs] == [{"extract_windows_int": 27, **PNP}] * 2
     assert graphs[0].count_nodes() == graphs[1].count_nodes() > 0
     for (sg, mg), (se, me) in zip(zip(*runs[True]), zip(*runs[False]), strict=True):
         for k in mg:
@@ -1834,10 +2051,10 @@ def test_mesh_shard_equals_single_device_run(monkeypatch):
 # (launches at the first frame, per tracked frame)} of one unbatched sequence).
 BATCHED_BENCH_PATHS = {
     "cell": (dict(lk_kernel="cell"), 0.05,
-             {"extract_windows_int": (1, 1), "level_track_cell": (0, 6)}),
-    "v1": (dict(lk_kernel="v1"), 0.05, {"extract_windows_int": (1, 1), "level_track_v1": (0, 6)}),
-    "orb": (dict(mode="orb", max_features=2048), 0.07,
-            {"extract_windows_int": (16, 16), "extract_patches": (16, 16)}),
+             {"extract_windows_int": (1, 1), "level_track_cell": (0, 6), **PNP_FRAMES}),
+    "v1": (dict(lk_kernel="v1"), 0.05,
+           {"extract_windows_int": (1, 1), "level_track_v1": (0, 6), **PNP_FRAMES}),
+    "orb": (dict(mode="orb", max_features=2048), 0.07, ORB_FRAMES),
 }
 
 
@@ -2024,6 +2241,7 @@ def test_cli_at_kitti_shape_counts_k1(tmp_path, monkeypatch, variant):
     seq = tmp_path / "seq"
     yaml, frames, poses_gt = _kitti_dir(seq, n, mode="orb" if variant == "orb" else "lk")
     want = dict.fromkeys(_launches(), 0)
+    want.update(ransac_pnp=tpnp.STAGES * (n - 1))
     if variant == "orb":
         want.update(extract_windows_int=16 * n, extract_patches=16 * n)
     else:
@@ -2044,8 +2262,8 @@ def test_cli_at_kitti_shape_counts_k1(tmp_path, monkeypatch, variant):
     (sys_, traj), = made
     monkeypatch.setattr(system_mod.System, method, real)
     assert (sys_.vo_cfg.height, sys_.vo_cfg.width) == (384, 1248)
-    per_replay = ({"extract_windows_int": 16, "extract_patches": 16} if variant == "orb"
-                  else {"extract_windows_int": 27})
+    per_replay = ({"extract_windows_int": 16, "extract_patches": 16, **PNP} if variant == "orb"
+                  else {"extract_windows_int": 27, **PNP})
     assert sys_.graph is not None and sys_.graph.per_replay == per_replay
     ate, accept = trajectory.ate_rmse(traj, poses_gt), sys_.summary()["accept_rate"]
     if variant == "orb":
@@ -2082,7 +2300,8 @@ def test_cli_batch_over_two_directories(tmp_path, capsys):
         assert cli.main([yaml, "--batch", str(seq), str(tmp_path / "seq2"), "--batch-gt", gt,
                          gt, "--out", str(out)]) == 0
         assert _launches() == dict(dict.fromkeys(_launches(), 0),
-                                   extract_windows_int=1 + 27 * (n - 1))
+                                   extract_windows_int=1 + 27 * (n - 1),
+                                   ransac_pnp=tpnp.STAGES * (n - 1))
     finally:
         sequences.clear()
     assert capsys.readouterr().out.count("ATE=") == 2

@@ -4,8 +4,9 @@ is ``test_torch_batched_frontend.py``).
 
 * K1-K4's custom ops (``ops/library.py``): under ``torch.func.vmap`` each
   batch rule equals the per-sequence calls bit for bit (the plain versions
-  once per sequence), whatever axis vmap batches; the ops' schemas and fake
-  implementations pass ``torch.library.opcheck``.
+  once per sequence), whatever axis vmap batches (RANSAC-PnP's op:
+  ``test_torch_pnp.py``); the ops' schemas and fake implementations, PnP's
+  too, pass ``torch.library.opcheck``.
 * The batched port against the unbatched port, sequence by sequence, with
   the same draws: accept and n_tracked equal, poses within 1e-5 m (batched
   reductions sum in another order), and no op of the step falls back to
@@ -36,6 +37,7 @@ from stereo_visual_odometry_tpu.utils import kitti as jkitti
 from stereo_visual_odometry_tpu_torch.models import frontend as tfront
 from stereo_visual_odometry_tpu_torch.ops import lk_cell, lk_v1, patch
 from stereo_visual_odometry_tpu_torch.parallel import evaluate, mesh, sequences
+from stereo_visual_odometry_tpu_torch.probes import pnp_timing
 from stereo_visual_odometry_tpu_torch.utils import kitti, synthetic, trajectory
 from stereo_visual_odometry_tpu_torch.utils.config import CameraConfig, rig_from_config
 from torch_jax_kernels import jax_batch_draws
@@ -123,10 +125,14 @@ def test_custom_op_vmap_rule_equals_per_sequence_calls(name):
 
 
 @pytest.mark.parametrize("op", ["extract_windows_int", "extract_patches", "lk_level_cell",
-                                "lk_level_v1"])
+                                "lk_level_v1", "ransac_pnp"])
 def test_custom_op_schema_and_fake(op):
     imgs, nxt, corners, centers, pts, guess, active = _k_inputs()
-    args = {"extract_windows_int": (imgs[0], corners[0].clamp(0, 40), 5, 7),
+    x = {k: v[0] for k, v in pnp_timing.problem(1, 40, 16, device="cpu").items()}
+    cam = pnp_timing.camera("cpu")
+    args = {"ransac_pnp": (x["pts"], x["px"], x["valid"], x["u"], x["T_init"], x["weights"],
+                           cam.fx, cam.fy, cam.cx, cam.cy, 2.0, 3),
+            "extract_windows_int": (imgs[0], corners[0].clamp(0, 40), 5, 7),
             "extract_patches": (imgs[0], centers[0], 9),
             "lk_level_cell": (imgs[0], nxt[0], pts[0], guess[0], 7, 30, 0.01, 1e-4, 6.0, 2,
                               active[0]),

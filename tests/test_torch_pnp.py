@@ -10,6 +10,13 @@ On minimal 6-point samples the float32 DLT is ill-conditioned on both
 sides: each package degenerates on some samples, not the same ones, and
 RANSAC's scoring drops them, so that case is compared through
 ``ransac_pnp`` above and not per sample.
+
+The routes of the port's wrapper (the CUDA kernels are held to the plain
+version in ``tests/test_torch_cuda.py``): a CPU tensor runs the plain
+version and nothing else; under ``torch.func.vmap`` the custom op
+``svo::ransac_pnp``'s CPU kernel equals the wrapper once per sequence, bit
+for bit, whatever vmap batches; the CUDA launcher refuses bad inputs before
+it builds or launches anything.
 """
 import numpy as np
 import jax
@@ -21,7 +28,9 @@ from stereo_visual_odometry_tpu.ops import camera as jcam
 from stereo_visual_odometry_tpu.ops import pnp as jpnp
 from stereo_visual_odometry_tpu.ops import se3 as jse3
 from stereo_visual_odometry_tpu_torch.ops import camera as tcam
+from stereo_visual_odometry_tpu_torch.ops import native
 from stereo_visual_odometry_tpu_torch.ops import pnp as tpnp
+from stereo_visual_odometry_tpu_torch.probes import pnp_timing
 
 FX, CX, CY = 718.856, 607.19, 185.22
 
@@ -106,3 +115,84 @@ def test_dlt_pose_batched():
     Tt = tpnp._dlt_pose(torch.from_numpy(pts[idx]), torch.from_numpy(norm[idx]),
                         torch.from_numpy(mask))
     np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), atol=1e-3, rtol=0)
+
+
+def _no_native(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"the CPU route reached the CUDA entry {name}")
+    monkeypatch.setattr(native, "entry", refuse)
+
+
+@pytest.mark.parametrize("init,orb", [(True, True), (False, False)])
+def test_cpu_route_is_the_plain_version(monkeypatch, init, orb):
+    """A CPU tensor takes the plain version, bit for bit, launches nothing
+    and counts nothing."""
+    _no_native(monkeypatch)
+    x = {k: v[0] for k, v in pnp_timing.problem(1, 200, 64, seed=7, device="cpu").items()}
+    cam = pnp_timing.camera("cpu")
+    before = tpnp.ransac_pnp.launches
+    got = pnp_timing.call(cam, 64, init, orb)(*(x[k] for k in pnp_timing.ARGS))
+    want = pnp_timing.call(cam, 64, init, orb, plain=True)(*(x[k] for k in pnp_timing.ARGS))
+    assert tpnp.ransac_pnp.launches == before
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+    assert int(got[2]) > 100  # a real pose was found
+
+
+# name -> (in_dims of (pts, px, valid, u, T_init, weights), T_init and weights given)
+VMAP_CASES = {"axis0": (0, True), "axis1": (1, True), "plain_inputs": (0, False),
+              "shared_points": ((None, 0, 0, 0, 0, 0), True)}
+
+
+@pytest.mark.parametrize("case", list(VMAP_CASES))
+def test_op_under_vmap_equals_a_loop_over_sequences(monkeypatch, case):
+    """``ransac_pnp`` under ``torch.func.vmap`` goes through the op's batch
+    rule, whose CPU kernel runs the plain version once per sequence: equal
+    bit for bit to the wrapper called per sequence, with the sequence axis
+    first or second, without ``T_init`` and weights, and with points vmap
+    did not batch (the rule broadcasts them)."""
+    _no_native(monkeypatch)
+    dims, full = VMAP_CASES[case]
+    x = pnp_timing.problem(3, 120, 32, seed=len(case), device="cpu")
+    cam = pnp_timing.camera("cpu")
+    fn = pnp_timing.call(cam, 32, full, full)
+    args = [x[k] for k in pnp_timing.ARGS]
+    if dims is None or isinstance(dims, tuple):
+        args[0] = args[0][0]
+    if dims == 1:
+        args = [a.movedim(0, 1) for a in args]
+    got = torch.func.vmap(fn, in_dims=dims)(*args)
+    for s in range(3):
+        one = [a if d is None else a.select(d, s)
+               for a, d in zip(args, dims if isinstance(dims, tuple) else (dims,) * 6)]
+        for g, w in zip(got, fn(*one), strict=True):
+            assert torch.equal(g[s], w)
+
+
+def test_op_refuses_a_batched_camera():
+    """The batch rule takes one camera for all sequences: intrinsics that
+    vmap batches raise a ValueError."""
+    x = pnp_timing.problem(2, 40, 16, device="cpu")
+    cam = pnp_timing.camera("cpu")
+    fn = lambda fx, p, q, v, u: tpnp.ransac_pnp(
+        tcam.Pinhole(fx, cam.fy, cam.cx, cam.cy), p, q, v, num_hypotheses=16, u=u)
+    with pytest.raises(ValueError, match="one camera"):
+        torch.func.vmap(fn)(cam.fx.expand(2), *(x[k] for k in ("pts", "px", "valid", "u")))
+
+
+def test_launcher_checks_before_it_builds(monkeypatch):
+    """``pnp.launch`` refuses what the kernels cannot take with a
+    ValueError before it builds or launches anything."""
+    _no_native(monkeypatch)
+    x = {k: v[0] for k, v in pnp_timing.problem(1, 50, 16, device="cpu").items()}
+    cam = pnp_timing.camera("cpu")
+    good = [x[k] for k in pnp_timing.ARGS]
+    bad = {0: x["pts"].double(), 1: x["px"][:10], 2: x["valid"].float(),
+           3: x["u"][:, :5], 4: x["T_init"][:3], 5: x["weights"][:7]}
+    for i, t in bad.items():
+        args = list(good)
+        args[i] = t
+        with pytest.raises(ValueError):
+            tpnp.launch(cam.fx, cam.fy, cam.cx, cam.cy, *args, 0.5, 6)
+    with pytest.raises(ValueError, match="intrinsics"):
+        tpnp.launch(cam.fx, cam.fy.double(), cam.cx, cam.cy, *good, 0.5, 6)

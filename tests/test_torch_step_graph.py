@@ -232,5 +232,6 @@ def test_step_nodes_counts_one_step():
     stages = " ".join(got["by_stage"])
     assert "lk.circular_track" in stages and "pnp.ransac_pnp" in stages
     assert "outside step_fn" not in stages
+    assert got["kernels"] == {}  # the plain versions on the CPU: no hand-written kernel
     assert list(got["by_stage"].values()) == sorted(got["by_stage"].values(), reverse=True)
     assert got["by_function"]["ops/lk_dense.py:level_track_dense"] > 0.25 * got["total"]
